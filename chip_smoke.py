@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100 and check it end to end.
 
     python3 chip_smoke.py             # every phase (what a GPU check runs)
-    python3 chip_smoke.py --profile   # also profile a few main-path rounds
+    python3 chip_smoke.py --profile   # also profile a few main- and tree-path rounds
 
 Phases, in order (any failure exits non-zero before the final line):
 
@@ -16,13 +16,22 @@ Phases, in order (any failure exits non-zero before the final line):
    LRU target with all 32 layers, built layer by layer; LLaMA-68M widths,
    BVQ draft) served by ``Engine`` at ``EngineConfig()`` defaults, 4 greedy
    requests with seeded 32-128-token prompts and max_tokens=32.  Launch
-   counters are zeroed just before and read just after; every kernel must
-   have launched.  Speculative outputs are compared with a target-only
-   greedy decode.
-4. Card against CPU at smoke size: one smoke pair built on the CPU from a
+   counters are zeroed just before and read just after; every kernel of
+   the path must have launched.  Speculative outputs are compared with a
+   target-only greedy decode.
+4. int8 path: the same pair and requests under ``EngineConfig(kv_quant=
+   "int8")``; must launch the int8 paged body.  Its tokens are compared
+   with the main path's (int8 KV changes the logits: reported, not gated).
+5. Tree path: the same pair and requests under ``EngineConfig(kv_quant=
+   "mixed", spec_mode="tree")`` with requests 1 and 3 pinned to int8 KV;
+   must launch both tree bodies, and each row must equal the chain path of
+   its kind (main path for fp rows, int8 path for int8 rows) except at a
+   near-tie.
+6. Card against CPU at smoke size: one smoke pair built on the CPU from a
    fixed seed, copied to the card; the same greedy requests through the
-   port on cuda (kernels) and on cpu (plain versions) must give the same
-   tokens, unless the first divergence is shown to be a near-tie.
+   port on cuda (kernels) and on cpu (plain versions), with the default
+   engine and with a mixed-KV tree engine, must give the same tokens,
+   unless the first divergence is shown to be a near-tie.
 
 The last two lines are the kernels summary (JSON) and the result line
 ``{"ok": true, "device": {...}}``.  Weights are random, made from SEED.
@@ -60,7 +69,25 @@ KERNELS = {
                    "src/repro/kernels/bvq_matmul.py:57"),
     "paged_attention": ("src/repro_torch/kernels/csrc/paged_attn.cu",
                         "src/repro/kernels/paged_attn.py:184"),
+    "paged_attention_int8": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                             "src/repro/kernels/paged_attn.py:158"),
+    "paged_attention_tree": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                             "src/repro/kernels/paged_attn.py:167"),
+    "paged_attention_int8_tree": ("src/repro_torch/kernels/csrc/paged_attn.cu",
+                                  "src/repro/kernels/paged_attn.py:175"),
+    "decode_attention_int8": ("src/repro_torch/kernels/csrc/decode_attn.cu",
+                              "src/repro/kernels/decode_attn.py:81"),
 }
+# the path whose run each kernel's launches are read from (counts zeroed
+# just before that path, read just after)
+PATH_OF = {"w4a8_matmul": "main_path", "block_rotate": "main_path", "bvq_matmul": "main_path",
+           "paged_attention": "main_path", "paged_attention_int8": "int8_path",
+           "paged_attention_tree": "tree_path", "paged_attention_int8_tree": "tree_path",
+           "decode_attention_int8": "main_path"}
+# kernels no path must launch: no serving path of the reference calls
+# decode_attention_int8, so only its kernel phase runs it; the summary
+# line still reads its (zero) count from the main path's counters
+NO_PATH = {"decode_attention_int8"}
 
 
 def emit(**record) -> None:
@@ -198,36 +225,124 @@ def check_bvq(dev, timer, g, m, k, n):
     )
 
 
-def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths):
+def _random_tree_masks(g, b, w, active):
+    """(B, W, W) ancestor masks of random (W-1)-node topologies for the
+    first `active` rows (node i's parent: the root or an earlier node), and
+    self-only rows for the rest, as the engine gives its idle slots."""
+    from repro_torch.core.speculative import tree_ancestor_mask
+
+    masks = np.tile(np.eye(w, dtype=np.float32), (b, 1, 1))
+    for i in range(active):
+        draws = torch.randint(0, 1 << 20, (w - 1,), generator=g, device=g.device).tolist()
+        masks[i] = tree_ancestor_mask([r % (n + 1) - 1 for n, r in enumerate(draws)], w)
+    return masks
+
+
+def _pages_walked(lengths, w, ps, mp, masks=None):
+    """Pages the paged attention function must read, summed over rows: the
+    pages holding positions < len, or every page of the row when one of its
+    query rows sees no position (that row's output is then the mean over
+    all of them, as in the reference).  Causal: row 0 sees position len - W.
+    Tree: a non-empty prefix is seen by every row, else row w sees the
+    window slots rel >= W - len its mask marks."""
+    total = 0
+    for i, ln in enumerate(lengths):
+        if masks is None:
+            sees = ln >= w
+        else:
+            sees = ln > w or (ln > 0 and bool((masks[i][:, w - ln:] > 0.5).any(axis=1).all()))
+        total += min(mp, -(-ln // ps)) if sees else mp
+    return total
+
+
+def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, tree=False):
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attn import paged_attention
+    from repro_torch.models.layers import kv_quantize
 
     n_pages = b * mp + 1
     q = torch.randn((b, w, kvs, 1, hd), generator=g, device=dev).to(torch.bfloat16)
     kp = torch.randn((n_pages, ps, kvs, hd), generator=g, device=dev).to(torch.bfloat16)
     vp = torch.randn((n_pages, ps, kvs, hd), generator=g, device=dev).to(torch.bfloat16)
+    kw, masks = {}, None
+    if quantized:
+        (kp, ks), (vp, vs) = kv_quantize(kp), kv_quantize(vp)
+        kw.update(k_scale=ks, v_scale=vs)
+    if tree:
+        masks = _random_tree_masks(g, b, w, sum(ln > w for ln in lengths))
+        kw["tree_mask"] = torch.as_tensor(masks, device=dev)
     table = torch.randperm(n_pages - 1, generator=g, device=dev)[: b * mp]
     table = table.reshape(b, mp).to(torch.int32)
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
-    got = paged_attention(q, kp, vp, table, lens)
-    want = ref.paged_attn_ref(q, kp, vp, table, lens)
-    # library yardstick: SDPA over the gathered (dense) K/V with the mask
-    kd = ref.gather_pages_ref(kp, table).permute(0, 2, 1, 3)  # (B, KVS, S, hd)
-    vd = ref.gather_pages_ref(vp, table).permute(0, 2, 1, 3)
+    got = paged_attention(q, kp, vp, table, lens, **kw)
+    want = ref.paged_attn_ref(q, kp, vp, table, lens, **kw)
+    # library yardstick: SDPA over the gathered (dequantized) K/V, masked
+    kd = ref.gather_pages_ref(kp, table).float()
+    vd = ref.gather_pages_ref(vp, table).float()
+    if quantized:
+        kd = kd * ref.gather_pages_ref(ks, table)
+        vd = vd * ref.gather_pages_ref(vs, table)
+    kd = kd.to(torch.bfloat16).permute(0, 2, 1, 3)  # (B, KVS, S, hd)
+    vd = vd.to(torch.bfloat16).permute(0, 2, 1, 3)
     qd = q[:, :, :, 0].permute(0, 2, 1, 3)  # (B, KVS, W, hd)
     s = mp * ps
-    horizon = lens[:, None].long() - w + torch.arange(w, device=dev)[None, :]
-    mask = (torch.arange(s, device=dev)[None, None] <= horizon[..., None])[:, None]
-    walked = sum(min(mp, -(-ln // ps)) if ln >= w else mp for ln in lengths)
-    kv_bytes = 2 * walked * ps * kvs * hd * 2
-    ops = 4.0 * w * hd * kvs * walked * ps
-    bound, by = bound_ms(kv_bytes + 2 * 4 * q.numel() + 4 * table.numel() + 4 * b, ops, "bf16")
+    pos = torch.arange(s, device=dev)
+    base = lens[:, None].long() - w  # (B, 1): window start
+    if tree:
+        rel = pos[None, :] - base
+        win = torch.gather(kw["tree_mask"].bool(), 2,
+                           torch.clamp(rel, 0, w - 1)[:, None, :].expand(b, w, s))
+        mask = (pos[None, None] < base[..., None]) | (((rel >= 0) & (rel < w))[:, None] & win)
+    else:
+        mask = pos[None, None] <= (base + torch.arange(w, device=dev)[None, :])[..., None]
+    mask = mask[:, None]
+    walked = _pages_walked(lengths, w, ps, mp, masks)
+    slot_bytes = kvs * hd * (1 if quantized else 2) + (4 * kvs if quantized else 0)
+    io_bytes = 2 * 4 * q.numel() + 4 * table.numel() + 4 * b + (4 * b * w * w if tree else 0)
+    bound, by = bound_ms(2 * walked * ps * slot_bytes + io_bytes,
+                         4.0 * w * hd * kvs * walked * ps, "bf16")
     return dict(
         max_abs_err=float((got - want).abs().max()), tol=2e-5,
-        kernel_ms=timer.ms(lambda: paged_attention(q, kp, vp, table, lens)),
-        plain_ms=timer.ms(lambda: ref.paged_attn_ref(q, kp, vp, table, lens)),
+        kernel_ms=timer.ms(lambda: paged_attention(q, kp, vp, table, lens, **kw)),
+        plain_ms=timer.ms(lambda: ref.paged_attn_ref(q, kp, vp, table, lens, **kw)),
         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
+        bound_ms=bound, bound_by=by,
+    )
+
+
+def check_decode_int8(dev, timer, g, b, s, kvs, hd, length):
+    """The dense int8 decode kernel at a full LLaMA2-7B cache (G = 1), and
+    a bitwise check that a poisoned tail past `length` changes nothing."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attn import decode_attention_int8
+    from repro_torch.models.layers import kv_quantize
+
+    q = torch.randn((b, kvs, 1, hd), generator=g, device=dev).to(torch.bfloat16)
+    kq, ks = kv_quantize(torch.randn((b, s, kvs, hd), generator=g, device=dev))
+    vq, vs = kv_quantize(torch.randn((b, s, kvs, hd), generator=g, device=dev))
+    ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
+    ln = torch.tensor(length, dtype=torch.int32, device=dev)
+    args = (q, kq, ks, vq, vs, ln)
+    got = decode_attention_int8(*args)
+    want = ref.decode_attn_int8_ref(*args)
+    kq2, vs2 = kq.clone(), vs.clone()
+    kq2[:, length:] = 127
+    vs2[:, length:] = 1e6
+    poisoned = decode_attention_int8(q, kq2, ks, vq, vs2, ln)
+    kd = (kq.float() * ks[..., None]).to(torch.bfloat16).permute(0, 2, 1, 3)
+    vd = (vq.float() * vs[..., None]).to(torch.bfloat16).permute(0, 2, 1, 3)
+    mask = (torch.arange(s, device=dev) < length)[None, None, None]
+    n = min(length, s) if length > 0 else s
+    bound, by = bound_ms(2 * b * n * kvs * (hd + 4) + 2 * 4 * q.numel() + 4,
+                         4.0 * hd * kvs * b * n, "bf16")
+    return dict(
+        max_abs_err=float((got - want).abs().max()), tol=2e-5,
+        poisoned_tail_bitwise_equal=bool(torch.equal(got, poisoned)),
+        kernel_ms=timer.ms(lambda: decode_attention_int8(*args)),
+        plain_ms=timer.ms(lambda: ref.decode_attn_int8_ref(*args)),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)),
         bound_ms=bound, bound_by=by,
     )
 
@@ -265,7 +380,30 @@ def phase_kernels(dev, seed):
         ("paged_attention", "draft step B=8 W=1 KVS=12 hd=64 ps=16 bf16",
          lambda: check_paged(dev, timer, g, mb, 1, 12, 64, 16, 11,
                              [160, 97, 42, 126, 1, 1, 4, 85])),
+        ("paged_attention_int8", "target verify B=8 W=4 KVS=32 hd=128 ps=16 int8",
+         lambda: check_paged(dev, timer, g, mb, win, 32, 128, 16, 11,
+                             [163, 100, 45, 129, 4, 4, 7, 88], quantized=True)),
+        ("paged_attention_int8", "draft step B=8 W=1 KVS=12 hd=64 ps=16 int8",
+         lambda: check_paged(dev, timer, g, mb, 1, 12, 64, 16, 11,
+                             [160, 97, 42, 126, 1, 1, 4, 85], quantized=True)),
     ]
+    # tree rounds: a W = tree_budget + 1 = 9 window, re-fed at the committed
+    # length (4 active rows with random 8-node trees; idle rows self-only)
+    tw, tlens = 9, [168, 105, 50, 134, 9, 9, 9, 9]
+    for name, quantized in (("paged_attention_tree", False), ("paged_attention_int8_tree", True)):
+        kind = "int8" if quantized else "bf16"
+        cases += [
+            (name, f"target verify B=8 W=9 KVS=32 hd=128 ps=16 {kind}",
+             lambda q=quantized: check_paged(dev, timer, g, mb, tw, 32, 128, 16, 12, tlens,
+                                             quantized=q, tree=True)),
+            (name, f"draft B=8 W=9 KVS=12 hd=64 ps=16 {kind}",
+             lambda q=quantized: check_paged(dev, timer, g, mb, tw, 12, 64, 16, 12, tlens,
+                                             quantized=q, tree=True)),
+        ]
+    for length in (4096, 1500, 17, 1):
+        cases.append(("decode_attention_int8",
+                      f"full LLaMA2-7B cache B=4 S=4096 KVS=32 G=1 hd=128 length={length}",
+                      lambda n=length: check_decode_int8(dev, timer, g, 4, 4096, 32, 128, n)))
     summary, failed = {}, []
     for name, shape, run in cases:
         rec = run()
@@ -274,6 +412,8 @@ def phase_kernels(dev, seed):
         summary.setdefault(name, dict(rec, shape=shape))
         if not rec["max_abs_err"] <= rec["tol"]:
             failed.append(f"{name} [{shape}]: err {rec['max_abs_err']} > tol {rec['tol']}")
+        if not rec.get("poisoned_tail_bitwise_equal", True):
+            failed.append(f"{name} [{shape}]: a poisoned tail past length changed the output")
     if failed:
         raise AssertionError("kernels disagree with their plain versions:\n" + "\n".join(failed))
     return summary
@@ -291,7 +431,6 @@ def _prompts(n, lo, hi, vocab, seed):
 
 
 def phase_main_path(dev, seed):
-    from repro_torch.kernels import _lib
     from repro_torch.launch.serve import build_paper_pair, greedy_reference
     from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
 
@@ -301,34 +440,17 @@ def phase_main_path(dev, seed):
     print(f"built paper pair in {time.perf_counter() - t0:.1f} s "
           f"(target layers {target.cfg.n_layers}, draft layers {draft.cfg.n_layers}; "
           f"depth cut: none)")
-    eng = Engine(target, draft, EngineConfig(), device=dev)
     prompts = _prompts(4, 32, 128, target.cfg.vocab, seed)
     sp = SamplingParams(max_tokens=32)
-    torch.cuda.reset_peak_memory_stats(dev)
-    _lib.launches.clear()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    outs, summary = eng.run(prompts, sp)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(_lib.launches)
-    emitted = sum(len(o) for o in outs)
-    emit(phase="main_path", requests=len(outs), prompt_lens=[len(p) for p in prompts],
-         emitted=emitted, wall_s=wall, tokens_per_s=emitted / wall, rounds=summary["rounds"],
-         acceptance_rate=summary["acceptance_rate"],
-         max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches)
-    missing = [k for k in KERNELS if launches.get(k, 0) <= 0]
-    if missing:
-        raise AssertionError(f"main path did not launch {missing}")
-    if any(len(o) != sp.max_tokens for o in outs):
-        raise AssertionError("a request did not drain to max_tokens")
+    outs, launches = _drive("main_path", Engine(target, draft, EngineConfig(), device=dev),
+                            prompts, sp, dev)
     # the target-only decode runs the dense-cache path, whose attention
     # takes bf16 operands (the reference's _decode_attention), while the
     # paged kernel computes in f32: at bf16 the two can part at a near-tie,
     # so each divergence is reported with the top-2 margin there
     same, divergences = 0, []
     for p, o in zip(prompts, outs):
-        ref_toks, spec = greedy_reference(target, p, sp.max_tokens), o.tolist()
+        ref_toks, spec = greedy_reference(target, p, sp.max_tokens), o
         if ref_toks == spec:
             same += 1
         else:
@@ -336,24 +458,111 @@ def phase_main_path(dev, seed):
             divergences.append({"position": pos, "top2_margin": margin})
     emit(phase="main_path_check", equal_to_target_only_greedy=f"{same}/{len(outs)}",
          divergences=divergences)
-    return launches, (target, draft, prompts)
+    return launches, (target, draft, prompts), outs
 
 
-def phase_profile(dev, pair, rounds: int = 3) -> None:
-    """Where a round's time goes: the same 4 requests on a fresh engine,
-    two warm rounds, then ``rounds`` rounds under torch.profiler (CPU and
-    CUDA activities).  Prints wall ms per round, summed device-kernel ms
-    per round (their ratio is the device's busy share; the profiler adds
-    host overhead, so the share is a lower bound) and the top entries by
-    device and by host time."""
-    from torch.profiler import ProfilerActivity, profile
+def _drive(phase, eng, prompts, sps, dev):
+    """Run one engine over the prompts with the launch counters zeroed just
+    before and read just after; print the path's numbers; fail unless every
+    kernel PATH_OF assigns to this path launched and every request drained.
+    Returns (token lists, launches)."""
+    from repro_torch.kernels import _lib
 
+    torch.cuda.reset_peak_memory_stats(dev)
+    _lib.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, summary = eng.run(prompts, sps)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launches)
+    outs = [o.tolist() for o in outs]
+    emitted = sum(len(o) for o in outs)
+    t_stats, d_stats = eng.pool_stats()
+    emit(phase=phase, requests=len(outs), prompt_lens=[len(p) for p in prompts],
+         emitted=emitted, wall_s=wall, tokens_per_s=emitted / wall, rounds=summary["rounds"],
+         acceptance_rate=summary["acceptance_rate"], kv_quant=summary["kv_quant"],
+         spec_mode=summary["spec_mode"], tree=summary["tree"],
+         kv_bytes_per_token={"target": t_stats.bytes_per_token,
+                             "draft": d_stats.bytes_per_token},
+         kv_bytes_per_token_by_kind=summary["kv_bytes_per_token"],
+         max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches)
+    missing = [k for k, path in PATH_OF.items()
+               if path == phase and k not in NO_PATH and launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"{phase} did not launch {missing}")
+    want = [sp.max_tokens for sp in (sps if isinstance(sps, list) else [sps] * len(prompts))]
+    if [len(o) for o in outs] != want:
+        raise AssertionError(f"{phase}: a request did not drain to max_tokens")
+    return outs, launches
+
+
+def _compare_rows(target, prompts, got, want, kinds):
+    """Per row: equal, or the first divergence with the paged-path top-2
+    margin there (of the row's own storage kind)."""
+    rows = []
+    for p, a, b, kind in zip(prompts, got, want, kinds):
+        if a == b:
+            rows.append({"equal": True})
+            continue
+        i, margin = _first_divergence_margin(target, p, a, b, kind)
+        rows.append({"equal": False, "kv_quant": kind, "position": i, "top2_margin": margin})
+    return rows
+
+
+def phase_int8_path(dev, pair, fp_outs):
+    """The main path's pair and requests with int8 paged KV."""
     from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
 
     target, draft, prompts = pair
-    eng = Engine(target, draft, EngineConfig(), device=dev)
-    for p in prompts:
-        eng.add_request(p, SamplingParams(max_tokens=32))
+    sp = SamplingParams(max_tokens=32)
+    outs, launches = _drive("int8_path",
+                            Engine(target, draft, EngineConfig(kv_quant="int8"), device=dev),
+                            prompts, sp, dev)
+    rows = _compare_rows(target, prompts, outs, fp_outs, ["none"] * len(prompts))
+    emit(phase="int8_path_check", equal_to_fp_main_path=f"{sum(r['equal'] for r in rows)}"
+         f"/{len(rows)}", rows=rows, gated=False)
+    return launches, outs
+
+
+def phase_tree_path(dev, pair, fp_outs, int8_outs):
+    """The main path's pair and requests as greedy tree rounds over mixed
+    KV stores, requests 1 and 3 pinned to int8: each row must equal the
+    chain path of its kind, except at a near-tie (greedy tree commits only
+    target-argmax tokens; only the order of the attention sums changes)."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    target, draft, prompts = pair
+    kinds = ["int8" if i % 2 else "none" for i in range(len(prompts))]
+    sps = [SamplingParams(max_tokens=32, kv_quant=k) for k in kinds]
+    eng = Engine(target, draft, EngineConfig(kv_quant="mixed", spec_mode="tree"), device=dev)
+    outs, launches = _drive("tree_path", eng, prompts, sps, dev)
+    want = [i8 if k == "int8" else fp for k, fp, i8 in zip(kinds, fp_outs, int8_outs)]
+    rows = _compare_rows(target, prompts, outs, want, kinds)
+    emit(phase="tree_path_check", equal_to_chain=f"{sum(r['equal'] for r in rows)}/{len(rows)}",
+         rows=rows, near_tie=NEAR_TIE)
+    bad = [r for r in rows if not r["equal"] and r["top2_margin"] > NEAR_TIE]
+    if bad:
+        raise AssertionError(f"tree path differs from the chain path beyond a near-tie: {bad}")
+    return launches
+
+
+def phase_profile(dev, pair, path, cfg, kinds, rounds: int = 3) -> None:
+    """Where a round's time goes on one path: the same 4 requests on a
+    fresh engine of ``cfg`` (request i pinned to ``kinds[i]``), two warm
+    rounds, then ``rounds`` rounds under torch.profiler (CPU and CUDA
+    activities).  Prints wall ms per round, summed device-kernel ms per
+    round (their ratio is the device's busy share; the profiler adds host
+    overhead, so the share is a lower bound) and the top entries by device
+    and by host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving.engine import Engine, SamplingParams
+
+    target, draft, prompts = pair
+    eng = Engine(target, draft, cfg, device=dev)
+    for p, kind in zip(prompts, kinds):
+        eng.add_request(p, SamplingParams(max_tokens=32, kv_quant=kind))
     eng.step()
     eng.step()
     torch.cuda.synchronize()
@@ -371,7 +580,7 @@ def phase_profile(dev, pair, rounds: int = 3) -> None:
     device_ms = sum(dev_us(e) for e in events) / 1e3
     top_dev = sorted(events, key=dev_us, reverse=True)[:12]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
-    emit(phase="profile", rounds=rounds, wall_ms_per_round=wall * 1e3 / rounds,
+    emit(phase="profile", path=path, rounds=rounds, wall_ms_per_round=wall * 1e3 / rounds,
          device_ms_per_round=device_ms / rounds, device_busy_share=device_ms / (wall * 1e3),
          top_device_ms_per_round=[[e.key[:80], dev_us(e) / 1e3 / rounds, e.count // rounds]
                                   for e in top_dev],
@@ -379,16 +588,34 @@ def phase_profile(dev, pair, rounds: int = 3) -> None:
                                  e.count // rounds] for e in top_cpu])
 
 
-def _first_divergence_margin(target, prompt, a, b):
-    """Top-2 margin of the target's logits (dense-cache prefill of the
-    common prefix) where two greedy streams first differ: the position
-    whose argmax the two paths disagreed on."""
-    from repro_torch.serving.engine import make_interface
+def _first_divergence_margin(target, prompt, a, b, kv_quant=None):
+    """Where two greedy streams first differ, and the top-2 margin of the
+    target's logits there: the position whose argmax the two runs
+    disagreed on.  ``kv_quant=None`` reads the logits from a dense-cache
+    prefill of the common prefix; ``"none"``/``"int8"`` through the paged
+    path of that storage kind, as the engine computes them: the dense
+    prefill of all but the last token scattered into a one-request store,
+    then a one-token window over it."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.paged_cache import device_pool_store
 
     i = next(j for j in range(len(a)) if a[j] != b[j])
-    seq = np.concatenate([prompt, np.asarray(a[:i], np.int32)])
-    logits, _ = make_interface(target).prefill(
-        target.params, torch.as_tensor(seq[None], device=target.device))
+    seq = torch.as_tensor(np.concatenate([prompt, np.asarray(a[:i], np.int32)]),
+                          device=target.device)
+    iface = E.make_interface(target)
+    if kv_quant is None:
+        logits, _ = iface.prefill(target.params, seq[None])
+    else:
+        n = seq.shape[0]
+        pool = E._pool_for(target, E.EngineConfig(max_batch=1, kv_quant=kv_quant), [n])
+        store = device_pool_store(pool, target.device, kv_quant)
+        table = torch.arange(pool.num_pages, dtype=torch.int32, device=target.device)
+        _, cache = iface.prefill(target.params, seq[None, :-1])
+        E._scatter_prefill(store, cache["attn"]["k"][:, 0], cache["attn"]["v"][:, 0], table,
+                           n - 1)
+        logits = E._make_paged_step(target)(
+            target.params, seq[None, -1:], store, table[None],
+            torch.tensor([n - 1], dtype=torch.int32, device=target.device))
     top2 = torch.topk(logits[0, -1].float(), 2).values
     return i, float(top2[0] - top2[1])
 
@@ -400,19 +627,26 @@ def phase_card_vs_cpu(dev, seed):
     t_cpu, d_cpu = build_pair(seed=seed, s_max=128, device="cpu")
     t_gpu, d_gpu = to_device(t_cpu, dev), to_device(d_cpu, dev)
     prompts = _prompts(4, 3, 24, t_cpu.cfg.vocab, seed + 1)
-    sp = SamplingParams(max_tokens=32)
-    cfg = EngineConfig(max_batch=4)
-    gpu, _ = Engine(t_gpu, d_gpu, cfg, device=dev).run(prompts, sp)
-    cpu, _ = Engine(t_cpu, d_cpu, cfg, device="cpu").run(prompts, sp)
-    gpu, cpu = [o.tolist() for o in gpu], [o.tolist() for o in cpu]
-    equal = sum(a == b for a, b in zip(gpu, cpu))
-    ties = []
-    for p, a, b in zip(prompts, gpu, cpu):
-        if a != b:
-            pos, margin = _first_divergence_margin(t_cpu, p, a, b)
-            ties.append({"position": pos, "top2_margin": margin})
-    emit(phase="card_vs_cpu", equal=f"{equal}/{len(prompts)}", divergences=ties)
-    bad = [t for t in ties if t["top2_margin"] > NEAR_TIE]
+    kinds = ["int8" if i % 2 else "none" for i in range(len(prompts))]
+    runs = [
+        ("chain", EngineConfig(max_batch=4), SamplingParams(max_tokens=32)),
+        ("mixed_tree", EngineConfig(max_batch=4, kv_quant="mixed", spec_mode="tree"),
+         [SamplingParams(max_tokens=32, kv_quant=k) for k in kinds]),
+    ]
+    bad = []
+    for name, cfg, sps in runs:
+        gpu, _ = Engine(t_gpu, d_gpu, cfg, device=dev).run(prompts, sps)
+        cpu, _ = Engine(t_cpu, d_cpu, cfg, device="cpu").run(prompts, sps)
+        gpu, cpu = [o.tolist() for o in gpu], [o.tolist() for o in cpu]
+        equal = sum(a == b for a, b in zip(gpu, cpu))
+        ties = []
+        for p, a, b in zip(prompts, gpu, cpu):
+            if a != b:
+                pos, margin = _first_divergence_margin(t_cpu, p, a, b)
+                ties.append({"position": pos, "top2_margin": margin})
+        emit(phase="card_vs_cpu", engine=name, equal=f"{equal}/{len(prompts)}",
+             divergences=ties)
+        bad += [dict(t, engine=name) for t in ties if t["top2_margin"] > NEAR_TIE]
     if bad:
         raise AssertionError(f"card and CPU tokens differ beyond a near-tie: {bad}")
 
@@ -423,7 +657,8 @@ def phase_card_vs_cpu(dev, seed):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile a few rounds (torch.profiler)")
+                    help="after the main path, profile a few rounds of the main and "
+                         "the tree path (torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -443,9 +678,16 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     phase_build()
     summary = phase_kernels(dev, SEED)
-    launches, pair = phase_main_path(dev, SEED)
+    launches = {}
+    launches["main_path"], pair, fp_outs = phase_main_path(dev, SEED)
     if args.profile:
-        phase_profile(dev, pair)
+        from repro_torch.serving.engine import EngineConfig
+
+        phase_profile(dev, pair, "main_path", EngineConfig(), [None] * 4)
+        phase_profile(dev, pair, "tree_path", EngineConfig(kv_quant="mixed", spec_mode="tree"),
+                      ["none", "int8", "none", "int8"])
+    launches["int8_path"], int8_outs = phase_int8_path(dev, pair, fp_outs)
+    launches["tree_path"] = phase_tree_path(dev, pair, fp_outs, int8_outs)
     del pair
     phase_card_vs_cpu(dev, SEED)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s on {smi}")
@@ -453,7 +695,7 @@ def main(argv=None) -> int:
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "shape": summary[name]["shape"],
-            "launches": launches.get(name, 0),
+            "launches": launches[PATH_OF[name]].get(name, 0), "path": PATH_OF[name],
             "max_abs_err": summary[name]["max_abs_err"],
             "ms": summary[name]["kernel_ms"], "plain_ms": summary[name]["plain_ms"],
             "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],

@@ -45,12 +45,14 @@ _SIGNATURES = {
     "repro_w4a8_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_block_rotate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_bvq_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "repro_paged_attn": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_paged_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_decode_attn_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_w4a8_cols_per_block": (),
     "repro_w4a8_rows_per_block": (),
 }
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -139,7 +141,7 @@ def check(err: int, name: str) -> None:
 
 def dtype_code(dtype: torch.dtype) -> int:
     if dtype not in _DTYPE_CODES:
-        raise TypeError(f"kernel dtype must be float32 or bfloat16, got {dtype}")
+        raise TypeError(f"kernel dtype must be float32, bfloat16 or int8, got {dtype}")
     return _DTYPE_CODES[dtype]
 
 

@@ -1,14 +1,21 @@
-"""Paged-attention wrapper (fp pools): ``csrc/paged_attn.cu`` on the card,
-the plain version (kernels/ref.py) on the CPU.
+"""Paged-attention wrapper: ``csrc/paged_attn.cu`` on the card, the plain
+version (kernels/ref.py) on the CPU.
 
-Replaces the fp-pool body of the Pallas kernel
-``repro/kernels/paged_attn.py:paged_decode_attention_pallas``.  The
-contract is the reference's (its docstring, lines 43-62): unused table
-slots hold any in-range page id and the length mask decides validity; a
-row of length 0 gives finite output; padded window queries never change
-earlier rows.
+Replaces the Pallas kernel
+``repro/kernels/paged_attn.py:paged_decode_attention_pallas`` with all four
+of its bodies: fp pools, int8 pools with per-(slot, head) scales, and each
+of those under a speculation-tree window mask.  The contract is the
+reference's (its docstring, lines 43-62): unused table slots hold any
+in-range page id and the length mask decides validity; a row of length 0
+gives finite output; padded window queries never change earlier rows.
+
+Launches count under the body that ran: ``paged_attention`` (fp, causal),
+``paged_attention_int8``, ``paged_attention_tree`` and
+``paged_attention_int8_tree``.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -20,19 +27,33 @@ __all__ = ["paged_attention"]
 
 def paged_attention(
     q: torch.Tensor,  # (B, KVS, G, hd) or (B, W, KVS, G, hd), any float dtype
-    k_pool: torch.Tensor,  # (P, page_size, KVS, hd), float32 or bfloat16
+    k_pool: torch.Tensor,  # (P, page_size, KVS, hd): float32, bfloat16, or int8 with scales
     v_pool: torch.Tensor,
     page_table: torch.Tensor,  # (B, max_pages) int32
     lengths: torch.Tensor,  # (B,) int32 valid tokens incl. the window
+    k_scale: Optional[torch.Tensor] = None,  # (P, page_size, KVS, 1) float32
+    v_scale: Optional[torch.Tensor] = None,
+    tree_mask: Optional[torch.Tensor] = None,  # (B, W, W), 5-D q only
 ) -> torch.Tensor:
     """Attention through the page table (no dense cache copy), f32 out in
-    q's shape.  A 5-D q scores a W-token window causally: query w sees
-    positions <= lengths - W + w."""
+    q's shape.  A 5-D q scores a W-token window: causally (query w sees
+    positions <= lengths - W + w), or with ``tree_mask`` as a speculation
+    tree (every query sees the committed prefix, positions < lengths - W,
+    and window slot j iff ``tree_mask[b, w, j]``).  With the scales the
+    pools are int8 and each page is dequantized (``int8 * scale``) before
+    it meets q."""
+    quantized = k_scale is not None
+    if quantized != (v_scale is not None):
+        raise ValueError("paged_attention: pass both k_scale and v_scale, or neither")
+    if tree_mask is not None and q.dim() != 5:
+        raise ValueError("paged_attention: tree_mask needs a 5-D window q")
     if q.device.type == "cpu":
-        return paged_attn_ref(q, k_pool, v_pool, page_table, lengths)
+        return paged_attn_ref(q, k_pool, v_pool, page_table, lengths,
+                              k_scale=k_scale, v_scale=v_scale, tree_mask=tree_mask)
     q5 = q if q.dim() == 5 else q[:, None]
     q5 = q5.float().contiguous()
-    dev = _lib.require_cuda("paged_attention", q5, k_pool, v_pool, page_table, lengths)
+    extra = [t for t in (k_scale, v_scale, tree_mask) if t is not None]
+    dev = _lib.require_cuda("paged_attention", q5, k_pool, v_pool, page_table, lengths, *extra)
     b, w, kvs, g, hd = q5.shape
     _, ps, pool_kvs, pool_hd = k_pool.shape
     if (pool_kvs, pool_hd) != (kvs, hd) or v_pool.shape != k_pool.shape:
@@ -43,13 +64,29 @@ def paged_attention(
         raise ValueError("paged_attention: page_table/lengths batch mismatch")
     if v_pool.dtype != k_pool.dtype:
         raise TypeError("paged_attention: k and v pools must share a dtype")
+    if quantized != (k_pool.dtype == torch.int8):
+        raise TypeError("paged_attention: int8 pools need scales, and only int8 pools take them")
+    if quantized:
+        for sc in (k_scale, v_scale):
+            if sc.dtype != torch.float32 or sc.shape != k_pool.shape[:-1] + (1,):
+                raise ValueError(f"paged_attention: scales must be float32 "
+                                 f"{tuple(k_pool.shape[:-1]) + (1,)}, got {sc.dtype} {sc.shape}")
+    if tree_mask is not None:
+        if tree_mask.dtype != torch.float32 or tree_mask.shape != (b, w, w):
+            raise ValueError(f"paged_attention: tree_mask must be float32 {(b, w, w)}, "
+                             f"got {tree_mask.dtype} {tuple(tree_mask.shape)}")
     code = _lib.dtype_code(k_pool.dtype)
     out = torch.empty_like(q5)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
     err = _lib.lib().repro_paged_attn(
-        q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), page_table.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), b, w, kvs, g, hd, ps, page_table.shape[1],
-        code, _lib.stream_ptr(dev),
+        q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
+        ptr(tree_mask), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+        b, w, kvs, g, hd, ps, page_table.shape[1], code, _lib.stream_ptr(dev),
     )
     _lib.check(err, "paged_attention")
-    _lib.launches["paged_attention"] += 1
+    body = ("_int8" if quantized else "") + ("_tree" if tree_mask is not None else "")
+    _lib.launches["paged_attention" + body] += 1
     return out if q.dim() == 5 else out[:, 0]

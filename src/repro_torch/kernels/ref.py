@@ -7,6 +7,7 @@ the kernels are held against (tests and chip_smoke.py)."""
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -20,6 +21,7 @@ __all__ = [
     "bvq_matmul_ref2",
     "gather_pages_ref",
     "paged_attn_ref",
+    "decode_attn_int8_ref",
 ]
 
 
@@ -62,25 +64,68 @@ def paged_attn_ref(
     v_pool: torch.Tensor,
     page_table: torch.Tensor,  # (B, max_pages) int32 (unused slots: any valid id)
     lengths: torch.Tensor,  # (B,) int32 valid tokens (incl. the window when 5-D)
+    k_scale: Optional[torch.Tensor] = None,  # (P, page_size, KVS, 1) f32 (int8 pools)
+    v_scale: Optional[torch.Tensor] = None,
+    tree_mask: Optional[torch.Tensor] = None,  # (B, W, W) window visibility
 ) -> torch.Tensor:
     """Plain version of kernels.paged_attn.paged_attention: gather the pages
-    into a dense cache, then masked softmax attention per row.  A 5-D q is
-    a W-token causally masked window whose last query sits at absolute
-    position ``lengths - 1``."""
+    into a dense cache (dequantized to f32 with the scales when the pools
+    are int8), then masked softmax attention per row.  A 5-D q is a
+    W-token window whose last query sits at absolute position
+    ``lengths - 1``: causal (query w sees positions <= lengths - W + w), or
+    with ``tree_mask`` a speculation tree — every query sees the committed
+    prefix (positions < lengths - W) and window slot j iff
+    ``tree_mask[b, w, j]``."""
     windowed = q.dim() == 5
     if not windowed:
         q = q[:, None]
     b, w, kvs, g, hd = q.shape
     k = gather_pages_ref(k_pool, page_table).float()
     v = gather_pages_ref(v_pool, page_table).float()
+    if k_scale is not None:
+        k = k * gather_pages_ref(k_scale, page_table).float()
+        v = v * gather_pages_ref(v_scale, page_table).float()
     s = k.shape[1]
+    dev = q.device
     scale = 1.0 / math.sqrt(hd)
     scores = torch.einsum("bwkgh,bskh->bwkgs", q.float() * scale, k)
-    horizon = lengths.long()[:, None] - w + torch.arange(w, device=q.device)[None, :]
-    valid = torch.arange(s, device=q.device)[None, None] <= horizon[..., None]  # (B, W, S)
+    if tree_mask is None:
+        horizon = lengths.long()[:, None] - w + torch.arange(w, device=dev)[None, :]
+        valid = torch.arange(s, device=dev)[None, None] <= horizon[..., None]  # (B, W, S)
+    else:
+        rel = torch.arange(s, device=dev)[None, :] - (lengths.long()[:, None] - w)  # (B, S)
+        in_window = (rel >= 0) & (rel < w)
+        idx = torch.clamp(rel, 0, w - 1)[:, None, :].expand(b, w, s)
+        win_vis = torch.gather(tree_mask.bool(), 2, idx)
+        prefix = torch.arange(s, device=dev)[None, None, :] < (lengths.long()[:, None, None] - w)
+        valid = prefix | (in_window[:, None, :] & win_vis)
     scores = torch.where(valid[:, :, None, None], scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
     out = torch.einsum("bwkgs,bskh->bwkgh", p, v)
     if not windowed:
         out = out[:, 0]
     return out.float()
+
+
+def decode_attn_int8_ref(
+    q: torch.Tensor,  # (B, KVS, G, hd)
+    k_cache: torch.Tensor,  # (B, S, KVS, hd) int8
+    k_scale: torch.Tensor,  # (B, S, KVS) f32
+    v_cache: torch.Tensor,
+    v_scale: torch.Tensor,
+    length: torch.Tensor,  # () int32 valid prefix
+) -> torch.Tensor:
+    """Plain version of kernels.decode_attn.decode_attention_int8: one
+    token's attention over a dense int8 cache.  As in the reference kernel,
+    the K scale folds into the scores and the V scale into the softmax
+    weights (the cache is never dequantized); positions >= length are
+    masked with -1e30.  Returns (B, KVS, G, hd) f32."""
+    hd = q.shape[-1]
+    s = k_cache.shape[1]
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("bkgh,bskh->bkgs", q.float() * scale, k_cache.float())
+    scores = scores * k_scale.float().permute(0, 2, 1)[:, :, None, :]
+    valid = torch.arange(s, device=q.device) < length.long()
+    scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
+    p = torch.softmax(scores, dim=-1) * v_scale.float().permute(0, 2, 1)[:, :, None, :]
+    return torch.einsum("bkgs,bskh->bkgh", p, v_cache.float())

@@ -23,6 +23,7 @@ __all__ = [
     "kv_store_heads",
     "flash_attention",
     "PagedCache",
+    "kv_quantize",
     "paged_attention_update",
     "forward_cache_ctx",
 ]
@@ -134,37 +135,60 @@ def decode_attention(
 class PagedCache:
     """One layer's view of the device-resident paged KV pool, shared by the
     whole batch: each row owns the pages its ``page_table`` row names and
-    ``length`` is per row.  ``k``/``v`` are views into the engine's pool
-    tensors, so writes through them land in the pool."""
+    ``length`` is per row.  ``k``/``v`` (and the scales) are views into the
+    engine's pool tensors, so writes through them land in the pool.
+
+    With ``k_scale``/``v_scale`` the pool is int8: new tokens quantize on
+    the write (values and scales in the same call) and the attention kernel
+    dequantizes each page, so pages stay int8 at rest.  ``tree_mask`` (B,
+    S, S) replaces the causal window with a speculation tree's ancestor
+    relation; None keeps the causal window."""
 
     k: torch.Tensor  # (P + scratch, page_size, kvh, hd)
     v: torch.Tensor
     page_table: torch.Tensor  # (B, max_pages) int32
     length: torch.Tensor  # (B,) int32 — tokens already written per request
-
-
-_UNPORTED_CACHE_KEYS = ("role_mask", "win_pos", "tree_mask")
+    k_scale: Optional[torch.Tensor] = None  # (P + scratch, page_size, kvh, 1) f32
+    v_scale: Optional[torch.Tensor] = None
+    tree_mask: Optional[torch.Tensor] = None  # (B, S, S) f32 window visibility
 
 
 def forward_cache_ctx(cache: Optional[dict], b: int, s: int):
-    """Shared forward preamble: ``(offset, positions (B, S), page_table)``.
+    """Shared forward preamble: ``(offset, positions (B, S), paged)``.
 
     A cache carrying ``page_table`` is the paged pool (``{"lengths" (B,),
-    "page_table" (B, mp), "attn": {"k": (L, P, ps, kvh, hd), "v": ...}}``):
-    offset is the per-row length tensor.  A dense cache (``{"length": int,
-    "attn": {"k": (L, B, S_max, kvh, hd), ...}}``) or None yields an int
-    offset and ``page_table=None``."""
+    "page_table" (B, mp), "attn": {"k": (L, P, ps, kvh, hd), "v": ...[,
+    "k_scale", "v_scale"]}}``): offset is the per-row length tensor and
+    ``paged`` the ``(page_table, tree_mask)`` pair the layers need.  The
+    speculation-tree keys are optional: ``win_pos`` (B, S) gives each
+    window slot its depth, so positions = offset + win_pos (slot order is
+    BFS, RoPE follows depth), and ``tree_mask`` (B, S, S) its ancestor
+    relation.  A dense cache (``{"length": int, "attn": {"k": (L, B, S_max,
+    kvh, hd), ...}}``) or None yields an int offset and ``paged=None``."""
     if cache is not None and "page_table" in cache:
-        unported = [k for k in _UNPORTED_CACHE_KEYS if k in cache]
-        if unported:
-            raise NotImplementedError(f"paged cache keys not ported yet: {unported}")
+        if "role_mask" in cache:
+            raise NotImplementedError("paged cache key not ported yet: role_mask")
         offset = cache["lengths"]
-        positions = offset[:, None].long() + torch.arange(s, device=offset.device)[None, :]
-        return offset, positions, cache["page_table"]
+        win_pos = cache.get("win_pos")
+        if win_pos is None:
+            win_pos = torch.arange(s, device=offset.device)[None, :]
+        positions = offset[:, None].long() + win_pos.long()
+        return offset, positions.expand(b, s), (cache["page_table"], cache.get("tree_mask"))
     offset = int(cache["length"]) if cache is not None else 0
     device = cache["attn"]["k"].device if cache is not None else None
     positions = (offset + torch.arange(s, device=device))[None, :].expand(b, s)
     return offset, positions, None
+
+
+def kv_quantize(x: torch.Tensor):
+    """Symmetric int8 quantization per (token, head) over the last axis
+    (the reference's ``_kv_quantize``): (..., hd) -> (int8 values, float32
+    scales (..., 1)).  Computed in float32; torch.round rounds half to
+    even, as jnp.round does."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
 
 
 def paged_attention_update(
@@ -174,12 +198,14 @@ def paged_attention_update(
     pc: PagedCache,
 ) -> torch.Tensor:
     """Scatter the S new tokens into their pool pages, then attend over the
-    valid per-row prefix (+ the causally masked window when S > 1).
+    valid per-row prefix (+ the window, causal or tree-masked, when S > 1).
 
     The reference returns updated pool arrays (its pools are donated to
     XLA); here the pools are written in place with ``index_copy_``.  Rows
     write disjoint pages; inactive rows all target the scratch page, where
-    duplicate writes are harmless.  Returns ``out (B, S, H, hd)``."""
+    duplicate writes are harmless.  An int8 pool gets the span quantized,
+    values and scales written in the same call.  Returns ``out (B, S, H,
+    hd)``."""
     b, s, h, hd = q.shape
     n_pages, ps, kvh, _ = pc.k.shape
     mp = pc.page_table.shape[1]
@@ -189,11 +215,19 @@ def paged_attention_update(
     # last) rather than overwrite the row's own committed KV
     page = torch.where(pos >= mp * ps, torch.full_like(page, n_pages - 1), page)
     flat = (page * ps + pos % ps).reshape(-1)
-    for pool, span in ((pc.k, k_new), (pc.v, v_new)):
-        pool.view(n_pages * ps, kvh, hd).index_copy_(
-            0, flat, span.to(pool.dtype).reshape(b * s, kvh, hd)
+    if pc.k_scale is not None:
+        kq, ks = kv_quantize(k_new)
+        vq, vs = kv_quantize(v_new)
+        writes = ((pc.k, kq), (pc.v, vq), (pc.k_scale, ks), (pc.v_scale, vs))
+    else:
+        writes = ((pc.k, k_new), (pc.v, v_new))
+    for pool, span in writes:
+        width = pool.shape[-1]
+        pool.view(n_pages * ps, kvh, width).index_copy_(
+            0, flat, span.to(pool.dtype).reshape(b * s, kvh, width)
         )
     new_len = pc.length + s
     q5 = q.reshape(b, s, kvh, h // kvh, hd)
-    out = paged_attention(q5, pc.k, pc.v, pc.page_table, new_len)
+    out = paged_attention(q5, pc.k, pc.v, pc.page_table, new_len,
+                          k_scale=pc.k_scale, v_scale=pc.v_scale, tree_mask=pc.tree_mask)
     return out.reshape(b, s, h, hd).to(q.dtype)

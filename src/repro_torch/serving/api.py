@@ -10,8 +10,8 @@ repro/serving/api.py).
   knob here: the device decides (kernel on the card, plain version on the
   CPU).  Non-default values of the features this port does not carry yet
   are accepted by the dataclass and refused by ``Engine``; the knobs that
-  only those features read (tree budget, APSD short/long lengths, byte
-  budgets) are left out.
+  only those features read (APSD short/long lengths, byte budgets) are
+  left out.
 """
 from __future__ import annotations
 
@@ -106,12 +106,22 @@ class EngineConfig:
     num_pages: Optional[int] = None  # page budget per pool (None: fit
     # max_batch worst-case requests of max_model_len tokens)
     max_model_len: Optional[int] = None  # peak cache length of a request
+    # paged-KV storage: "none" (model dtype), "int8" (every request stores
+    # int8 pages + one f32 scale per (slot, kv head)) or "mixed" (both
+    # stores; each request picks with SamplingParams.kv_quant, default none)
+    kv_quant: str = "none"
+    # speculation topology: "chain", or "tree" — a frontier node fans out to
+    # spec_branches top-k children when the draft's top-1 probability is
+    # below branch_threshold and the tree_budget node budget allows; the
+    # target verifies the whole tree in one ancestor-masked pass
+    spec_mode: str = "chain"
+    spec_branches: int = 2
+    tree_budget: int = 8
+    branch_threshold: float = 0.6
     # not ported yet: refused by Engine at any value but the default
     adaptive: bool = False  # APSD draft-length adaptation
     par_mode: str = "off"  # "wdos" fused rounds
-    kv_quant: str = "none"  # "int8" / "mixed" pools
     prefix_cache: bool = False
-    spec_mode: str = "chain"  # "tree" speculation
     profile_every_n: int = 0  # sampled device-time profiling
 
     def __post_init__(self):
@@ -119,6 +129,15 @@ class EngineConfig:
             raise ValueError(f"par_mode must be 'off' or 'wdos', got {self.par_mode!r}")
         if self.spec_mode not in ("chain", "tree"):
             raise ValueError(f"spec_mode must be 'chain' or 'tree', got {self.spec_mode!r}")
+        if self.spec_mode == "tree":
+            if self.spec_branches < 2:
+                raise ValueError(f"spec_branches must be >= 2, got {self.spec_branches}")
+            if self.tree_budget < 1:
+                raise ValueError(f"tree_budget must be >= 1, got {self.tree_budget}")
+            if not 0.0 <= self.branch_threshold <= 1.0:
+                raise ValueError(
+                    f"branch_threshold must be in [0, 1], got {self.branch_threshold}"
+                )
         if self.kv_quant not in ("none", "int8", "mixed"):
             raise ValueError(
                 f"kv_quant must be 'none', 'int8' or 'mixed', got {self.kv_quant!r}"
@@ -129,13 +148,32 @@ class EngineConfig:
     @property
     def spec_window(self) -> int:
         """Worst-case speculative tokens resident in a request's cache at
-        once — what admission reserves beyond prompt + max_tokens."""
-        return self.draft_len
+        once — what admission reserves beyond prompt + max_tokens.  A chain
+        round writes at most ``draft_len`` uncommitted drafts; a tree round
+        writes the whole padded window (``tree_budget`` nodes)."""
+        return self.tree_budget if self.spec_mode == "tree" else self.draft_len
+
+    @property
+    def kv_kinds(self) -> Tuple[str, ...]:
+        """The KV storage kinds this engine allocates stores for."""
+        return ("none", "int8") if self.kv_quant == "mixed" else (self.kv_quant,)
+
+    def resolve_kv_quant(self, requested: Optional[str]) -> str:
+        """A request's storage kind: ``None`` takes the engine default
+        ("none" under "mixed"); an explicit choice must name an allocated
+        kind, else ValueError."""
+        if requested is None:
+            return "none" if self.kv_quant == "mixed" else self.kv_quant
+        if requested not in self.kv_kinds:
+            raise ValueError(
+                f"request kv_quant={requested!r} is incompatible with engine "
+                f"kv_quant={self.kv_quant!r} (allocated kinds: {self.kv_kinds})"
+            )
+        return requested
 
     def unported(self) -> List[str]:
         """The non-default settings this port does not carry yet."""
         defaults = EngineConfig.__dataclass_fields__
-        names = ("adaptive", "par_mode", "kv_quant", "prefix_cache", "spec_mode",
-                 "profile_every_n")
+        names = ("adaptive", "par_mode", "prefix_cache", "profile_every_n")
         return [f"{n}={getattr(self, n)!r}" for n in names
                 if getattr(self, n) != defaults[n].default]

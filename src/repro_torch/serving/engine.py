@@ -1,13 +1,25 @@
 """Serving engine: the stepwise continuous-batching speculative-decoding
-runtime (torch counterpart of repro/serving/engine.py, greedy chain rounds).
+runtime (torch counterpart of repro/serving/engine.py, greedy two-phase
+rounds, chain or tree).
 
 ``Engine`` admits requests at any time (``add_request``); each ``step()``
 admits what fits, prefills it into both paged pools, and runs one
-two-phase round over every active request: the draft model proposes
-``draft_len`` tokens per row in lockstep micro-steps (plus one straggler
-step), then ONE batched target pass verifies every row's window, and the
-host applies the greedy accept rule and commits per row.  ``abort`` frees
-a request's pages at once.
+two-phase round over every active request.  A chain round: the draft model
+proposes ``draft_len`` tokens per row in lockstep micro-steps (plus one
+straggler step), then ONE batched target pass verifies every row's window,
+and the host applies the greedy accept rule and commits per row.  A tree
+round (``spec_mode="tree"``): each draft dispatch grows every row's tree by
+one level over a fixed window of ``tree_budget + 1`` slots, one
+ancestor-masked target pass verifies the trees, the greedy multi-branch
+accept rule commits a root path per row, and the KV of an accepted
+non-leftmost path is copied into chain order.  ``abort`` frees a request's
+pages at once.
+
+KV storage (``kv_quant``): "none" keeps the model dtype, "int8" stores
+int8 pages with one f32 scale per (slot, kv head), "mixed" allocates both
+stores and each request picks its own (``SamplingParams.kv_quant``).  One
+allocator serves both kinds, so a row's pages carry the same ids in both
+stores; each dispatch runs once per store and the logits merge row-wise.
 
 KV lives in device-resident paged pools (the allocator of
 serving/paged_cache.py plus torch tensors): prefill scatters straight into
@@ -24,9 +36,8 @@ table slot at the pool's scratch page.  Greedy tokens are per-row
 deterministic, so batch composition never changes a request's output.
 
 Not ported yet (refused with NotImplementedError): sampled requests, stop
-strings, tree speculation, fused WDOS rounds, int8 pools, the prefix
-cache, adaptive draft lengths, device-time profiling, the tracer and the
-flight recorder.
+strings, fused WDOS rounds, the prefix cache, adaptive draft lengths,
+device-time profiling, the tracer and the flight recorder.
 """
 from __future__ import annotations
 
@@ -37,7 +48,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.speculative import LMInterface, speculative_accept_greedy_host
+from repro_torch.core.speculative import (
+    LMInterface,
+    speculative_accept_greedy_host,
+    speculative_tree_accept_greedy_host,
+    topk_tokens_host,
+    tree_ancestor_mask,
+    tree_depths,
+)
 from repro_torch.models import layers as L
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
@@ -119,16 +137,22 @@ def _pool_for(model: ServingModel, cfg: EngineConfig, peaks: Sequence[int]) -> P
         page_size=cfg.page_size,
         dtype=mcfg.tdtype,
         alloc_storage=False,
+        kv_quant=cfg.kv_quant,
     )
 
 
 def _make_paged_step(model: ServingModel):
     """One batched paged forward: every batch slot is a row with its OWN
-    page-table row and length.  New tokens are written into the pool
-    tensors in place; returns the logits."""
+    page-table row and length.  New tokens (and, in an int8 store, their
+    scales) are written into the store tensors in place; returns the
+    logits.  A tree window passes ``win_pos`` (B, W) slot depths and
+    ``tree_mask`` (B, W, W) ancestor masks (the reference's
+    ``_make_tree_step``)."""
 
-    def step(params, tokens, store, page_table, lengths):
+    def step(params, tokens, store, page_table, lengths, win_pos=None, tree_mask=None):
         cache = {"lengths": lengths, "page_table": page_table, "attn": store}
+        if tree_mask is not None:
+            cache["win_pos"], cache["tree_mask"] = win_pos, tree_mask
         logits, _ = model._apply(params, tokens, cache)
         return logits
 
@@ -140,15 +164,76 @@ def _scatter_prefill(store: Dict[str, torch.Tensor], k_dense: torch.Tensor,
     """Write a freshly prefilled request's dense cache rows [0, n) into its
     pool pages, device to device, in place.  k_dense/v_dense: (L, s_max,
     kvh, hd); pages: (mp,) physical page ids of the request's table row.
-    The reference scatters a fixed-width span and routes the slots outside
-    [0, n) to the scratch page so it compiles once; eager torch writes the
-    valid rows only."""
-    nl, p1, ps, kvh, hd = store["k"].shape
+    For an int8 store the rows quantize here (the rule the decode steps
+    apply) and values and scales land together.  The reference scatters a
+    fixed-width span and routes the slots outside [0, n) to the scratch
+    page so it compiles once; eager torch writes the valid rows only."""
+    nl, p1, ps, kvh, _ = store["k"].shape
     pos = torch.arange(n, device=pages.device)
     flat = pages.long()[pos // ps] * ps + pos % ps
-    for name, src in (("k", k_dense), ("v", v_dense)):
+    k_rows, v_rows = k_dense[:, :n], v_dense[:, :n]
+    if "k_scale" in store:
+        (kq, ks), (vq, vs) = L.kv_quantize(k_rows), L.kv_quantize(v_rows)
+        writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        writes = {"k": k_rows, "v": v_rows}
+    for name, src in writes.items():
         pool = store[name]
-        pool.view(nl, p1 * ps, kvh, hd)[:, flat] = src[:, :n].to(pool.dtype)
+        pool.view(nl, p1 * ps, kvh, pool.shape[-1])[:, flat] = src.to(pool.dtype)
+
+
+def _compact_slots(store: Dict[str, torch.Tensor], src: torch.Tensor,
+                   dst: torch.Tensor) -> None:
+    """Copy flat pool slots ``src`` to ``dst`` in every tensor of a store
+    (values and, for int8, scales), in place: the tree-verify compaction
+    that moves an accepted non-leftmost path's KV from its BFS window slots
+    to the chain positions the committed sequence expects.  ``flat[:, src]``
+    is a gather into a new tensor, made before the write, so overlapping
+    src/dst spans are safe."""
+    for a in store.values():
+        nl, p1, ps = a.shape[:3]
+        flat = a.view(nl, p1 * ps, *a.shape[3:])
+        flat[:, dst] = flat[:, src]
+
+
+def _sample_tree_level(req: Request, cfg: EngineConfig, logits: np.ndarray) -> None:
+    """Grow one greedy request's draft tree by ONE level from its window
+    logits (W, V): row 0 is the distribution after the committed tip, row
+    1+i after drafted node i.  Each frontier node (the deepest grown level)
+    fans out to ``spec_branches`` top-k children when the draft's top-1
+    probability is below ``branch_threshold`` and the node budget covers
+    the fan-out, else one child (child 0 is the argmax, so the chain is
+    always a subtree).  When the budget runs out before any child lands,
+    ``tree_depth`` jumps to ``tree_dl`` so the tree reads as full."""
+    parents = req.tree_parents
+    depths = tree_depths(parents, len(parents) + 1)
+    d = req.tree_depth
+    frontier = [0] if d == 0 else [1 + i for i in range(len(parents)) if depths[1 + i] == d]
+    grew = False
+    for slot in frontier:
+        budget = cfg.tree_budget - len(req.tree_nodes)
+        if budget <= 0:
+            break
+        row = logits[slot]
+        # the draft's top-1 probability, in float64 on the host row as the
+        # reference computes it, so branching decisions agree at a crossing
+        conf = 1.0 / float(np.exp(row.astype(np.float64) - float(row.max())).sum())
+        k = cfg.spec_branches if conf < cfg.branch_threshold and budget >= cfg.spec_branches else 1
+        for t in topk_tokens_host(row, k):
+            req.tree_parents.append(slot - 1)
+            req.tree_nodes.append(int(t))
+        grew = True
+    req.tree_depth = d + 1 if grew else req.tree_dl
+
+
+def _tree_window_rows(req: Request, width: int):
+    """(tokens, depths, ancestor mask) window rows of one request's tree:
+    slot 0 re-feeds the committed tip at depth 0, slot 1+i holds drafted
+    node i at its depth; padded slots see only themselves."""
+    toks = np.zeros((width,), np.int32)
+    toks[0] = req.last_tok
+    toks[1: 1 + len(req.tree_nodes)] = req.tree_nodes
+    return toks, tree_depths(req.tree_parents, width), tree_ancestor_mask(req.tree_parents, width)
 
 
 class _TableSet:
@@ -238,13 +323,35 @@ class Engine:
         worst = [self.max_model_len] * cfg.max_batch
         self._t_pool = _pool_for(target, cfg, worst)
         self._d_pool = _pool_for(draft, cfg, worst)
-        self._t_store = device_pool_store(self._t_pool, self.device)
-        self._d_store = device_pool_store(self._d_pool, self.device)
+        # one store per storage kind over one allocator: under "mixed" a
+        # request reads and writes only the store of its kind, and the other
+        # store's copy of its pages holds unread garbage
+        self._kinds = cfg.kv_kinds
+        self._t_stores = {k: device_pool_store(self._t_pool, self.device, k) for k in self._kinds}
+        self._d_stores = {k: device_pool_store(self._d_pool, self.device, k) for k in self._kinds}
 
-        self.metrics = MetricsRegistry()
-        self._m_table_upload = self.metrics.counter(
+        self.metrics = m = MetricsRegistry()
+        self._m_table_upload = m.counter(
             "table_upload_seconds_total", "Host seconds uploading page tables / lengths",
         )
+        self._m_tree_nodes = m.counter(
+            "tree_nodes_total", "Draft-tree nodes proposed for verification (tree rounds)",
+        )
+        self._m_tree_branches = m.counter(
+            "tree_branches_total",
+            "Extra branches forked beyond a chain: fan-out minus one, summed over nodes",
+        )
+        self._m_tree_depth = m.histogram(
+            "tree_accept_depth",
+            "Depth of the accepted root path per tree round (the bonus token not counted)",
+            buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0),
+        )
+        self._m_tree_compactions = m.counter(
+            "tree_compactions_total",
+            "Compaction calls moving an accepted non-leftmost path's KV into chain order",
+        )
+        for fam in (self._m_tree_nodes, self._m_tree_branches, self._m_tree_compactions):
+            fam.inc(0)
 
         self._batcher = ContinuousBatcher(
             cfg, self._t_pool, self._d_pool,
@@ -254,6 +361,8 @@ class Engine:
         )
         self._t_iface, self._d_iface = make_interface(target), make_interface(draft)
         self._t_step, self._d_step = _make_paged_step(target), _make_paged_step(draft)
+        # a tree round's fixed window: the committed tip + tree_budget nodes
+        self._tree_width = cfg.tree_budget + 1
         self._t_tables = _TableSet(cfg.max_batch, self._t_pool, self.max_model_len, self.device)
         self._d_tables = _TableSet(cfg.max_batch, self._d_pool, self.max_model_len, self.device)
         self._requests: Dict[int, Request] = {}
@@ -276,15 +385,13 @@ class Engine:
             )
         if sp.stop:
             raise NotImplementedError("stop strings are not ported yet")
-        if sp.kv_quant not in (None, "none"):
-            raise ValueError(
-                f"request kv_quant={sp.kv_quant!r} is incompatible with engine kv_quant='none'"
-            )
         req = Request(
             rid=self._next_id,
             prompt=np.asarray(prompt).reshape(-1),
             max_new_tokens=sp.max_tokens,
             sampling=sp,
+            # ValueError when the request pins a kind this engine did not allocate
+            kv_kind=self.cfg.resolve_kv_quant(sp.kv_quant),
         )
         peak = req.peak_cache_len(self.cfg.spec_window)
         if peak > self.max_model_len:
@@ -334,6 +441,27 @@ class Engine:
         """(target PoolStats, draft PoolStats) — page residency right now."""
         return self._t_pool.stats(), self._d_pool.stats()
 
+    def stats_snapshot(self) -> dict:
+        """One JSON-safe stats view: queue and slots, rounds, acceptance,
+        the KV storage mode and each pool's residency (bytes per kind)."""
+        t_stats, d_stats = self.pool_stats()
+        b = self._batcher
+        return {
+            "queued": self.queue_depth(),
+            "active": self.num_active(),
+            "max_batch": self.cfg.max_batch,
+            "par_mode": self.cfg.par_mode,
+            "spec_mode": self.cfg.spec_mode,
+            "kv_quant": self.cfg.kv_quant,
+            "steps": b.step_count,
+            "rounds": b.rounds,
+            "finished_requests": b.finished_count,
+            "emitted_tokens": b.finished_emitted,
+            "acceptance_rate": b.finished_accepted / max(b.finished_drafted, 1),
+            "target_pool": dataclasses.asdict(t_stats),
+            "draft_pool": dataclasses.asdict(d_stats),
+        }
+
     # -- the stepwise round --------------------------------------------------
 
     def _prefill_into(self, req: Request, model: ServingModel, iface: LMInterface,
@@ -353,31 +481,75 @@ class Engine:
         seq.advance(plen - 1)
 
     def _admit(self) -> None:
-        """Admit whatever fits and prefill it into both pools."""
+        """Admit whatever fits and prefill it into both pools (the store of
+        the request's kind in each)."""
         for slot, req in self._batcher.admit():
             self._prefill_into(req, self.target, self._t_iface, req.t_seq,
-                               self._t_store, self._t_tables, slot)
+                               self._t_stores[req.kv_kind], self._t_tables, slot)
             self._prefill_into(req, self.draft, self._d_iface, req.d_seq,
-                               self._d_store, self._d_tables, slot)
+                               self._d_stores[req.kv_kind], self._d_tables, slot)
             req.state = RequestState.DECODE
+
+    def _kvq_mask(self, active) -> Optional[torch.Tensor]:
+        """(B,) bool device mask, True where the row's KV is int8, or None
+        on a single-kind engine (one dispatch, no merge)."""
+        if len(self._kinds) == 1:
+            return None
+        m = np.zeros((self.cfg.max_batch,), bool)
+        for slot, req in active:
+            m[slot] = req.kv_kind == "int8"
+        return torch.as_tensor(m, device=self.device)
+
+    def _dispatch(self, step_fn, params, tokens, stores, table, lengths, kvq, *extra):
+        """One logical batched forward over every storage kind: one call on
+        a single-kind engine; on a mixed engine one call per store, logits
+        merged row-wise by kind.  A row writes only its own pages of each
+        store and reads only the store of its kind, so the other call leaves
+        unread garbage, never corruption.  ``extra`` carries the tree
+        window's depths and mask."""
+        if kvq is None:
+            return step_fn(params, tokens, stores[self._kinds[0]], table, lengths, *extra)
+        outs = {k: step_fn(params, tokens, stores[k], table, lengths, *extra)
+                for k in self._kinds}
+        return torch.where(kvq[:, None, None], outs["int8"], outs["none"])
+
+    def _load_tables(self, active):
+        t0 = time.perf_counter()
+        d_table, d_len0 = self._d_tables.load((s, r.d_seq) for s, r in active)
+        t_table, t_len0 = self._t_tables.load((s, r.t_seq) for s, r in active)
+        self._m_table_upload.inc(time.perf_counter() - t0)
+        return d_table, d_len0, t_table, t_len0
+
+    def _retire_done(self, active) -> None:
+        for slot, req in active:
+            if req.done:
+                self._t_tables.clear_row(slot)
+                self._d_tables.clear_row(slot)
+                self._batcher.retire(slot)
+        self._batcher.step_count += 1
 
     def step(self) -> List[RequestOutput]:
         """Admit what fits, then run ONE two-phase round over every active
-        request.  Returns a ``RequestOutput`` per request that progressed."""
-        cfg = self.cfg
+        request: a chain round, or a tree round under ``spec_mode="tree"``.
+        Returns a ``RequestOutput`` per request that progressed."""
         self._admit()
         active = self._batcher.active()
         if not active:
             self._batcher.step_count += 1
             return []
+        if self.cfg.spec_mode == "tree":
+            self._tree_round(active)
+        else:
+            self._chain_round(active)
+        self._retire_done(active)
+        return [self._output_for(req) for _, req in active]
 
+    def _chain_round(self, active) -> None:
+        cfg = self.cfg
         dls = {slot: req.controller.draft_len() for slot, req in active}
         round_dl = max(dls.values())
-
-        t0 = time.perf_counter()
-        d_table, d_len0 = self._d_tables.load((s, r.d_seq) for s, r in active)
-        t_table, t_len0 = self._t_tables.load((s, r.t_seq) for s, r in active)
-        self._m_table_upload.inc(time.perf_counter() - t0)
+        kvq = self._kvq_mask(active)
+        d_table, d_len0, t_table, t_len0 = self._load_tables(active)
 
         # ---- draft phase: round_dl proposal steps + 1 straggler step, all
         # batched; the next-token argmax stays on the device
@@ -387,8 +559,9 @@ class Engine:
         cur_dev = torch.as_tensor(cur, device=self.device)
         draft_cols: List[torch.Tensor] = []
         for j in range(round_dl + 1):
-            logits = self._d_step(
-                self.draft.params, cur_dev[:, None], self._d_store, d_table, d_len0 + j
+            logits = self._dispatch(
+                self._d_step, self.draft.params, cur_dev[:, None], self._d_stores,
+                d_table, d_len0 + j, kvq,
             )
             if j < round_dl:
                 cur_dev = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
@@ -401,15 +574,14 @@ class Engine:
         window = np.zeros((cfg.max_batch, round_dl + 1), np.int32)
         window[:, 0] = cur
         window[:, 1:] = drafts
-        v_logits = self._t_step(
-            self.target.params, torch.as_tensor(window, device=self.device),
-            self._t_store, t_table, t_len0,
+        v_logits = self._dispatch(
+            self._t_step, self.target.params, torch.as_tensor(window, device=self.device),
+            self._t_stores, t_table, t_len0, kvq,
         )
         p_logits = v_logits.float().cpu().numpy()  # (B, round_dl+1, V)
 
         # ---- per-request accept / commit: a pure length update per row
         work = []
-        progressed: List[Request] = []
         for slot, req in active:
             dl = dls[slot]
             new, n_acc = speculative_accept_greedy_host(drafts[slot], p_logits[slot], dl)
@@ -418,20 +590,108 @@ class Engine:
             req.accepted += n_acc
             req.controller.observe(n_acc, dl)
             work.append((req, dl))
-            progressed.append(req)
             # both models wrote round_dl+1 positions; keep n_acc + 1
             # (draft invariant: cache == committed[:-1], incl. straggler)
             for seq in (req.t_seq, req.d_seq):
                 seq.advance(round_dl + 1)
                 seq.rewind(round_dl - n_acc, release_pages=False)
         self._batcher.model_round(work)
+
+    # -- tree speculation (spec_mode="tree") ---------------------------------
+
+    def _tree_round(self, active) -> None:
+        """One tree round: grow every active row's draft tree one LEVEL per
+        draft dispatch (the whole fixed window re-fed at the same base
+        length, so each level's frontier attends its ancestors through the
+        tree mask), plus one straggler dispatch that lands the leaf KV; then
+        verify every tree in ONE tree-masked target dispatch, walk the
+        greedy multi-branch accept rule per row, and compact accepted
+        non-leftmost paths into chain order."""
+        cfg = self.cfg
+        w, b = self._tree_width, cfg.max_batch
+        dls = {slot: min(req.controller.draft_len(), cfg.tree_budget) for slot, req in active}
+        round_depth = max(dls.values())
+        kvq = self._kvq_mask(active)
+        d_table, d_len0, t_table, t_len0 = self._load_tables(active)
         for slot, req in active:
-            if req.done:
-                self._t_tables.clear_row(slot)
-                self._d_tables.clear_row(slot)
-                self._batcher.retire(slot)
-        self._batcher.step_count += 1
-        return [self._output_for(req) for req in progressed]
+            req.begin_tree(dls[slot])
+        diag = np.arange(w)
+
+        def window_inputs():
+            tok = np.zeros((b, w), np.int32)
+            pos = np.zeros((b, w), np.int32)
+            tm = np.zeros((b, w, w), np.float32)
+            tm[:, diag, diag] = 1.0  # inactive rows: self-only, finite softmax
+            for slot, req in active:
+                tok[slot], pos[slot], tm[slot] = _tree_window_rows(req, w)
+            return tuple(torch.as_tensor(a, device=self.device) for a in (tok, pos, tm))
+
+        for j in range(round_depth + 1):
+            tok, pos, tm = window_inputs()
+            logits = self._dispatch(self._d_step, self.draft.params, tok, self._d_stores,
+                                    d_table, d_len0, kvq, pos, tm)
+            if j < round_depth:
+                l_np = logits.float().cpu().numpy()
+                for slot, req in active:
+                    if not req.tree_full:
+                        _sample_tree_level(req, cfg, l_np[slot])
+        tok, pos, tm = window_inputs()
+        v_logits = self._dispatch(self._t_step, self.target.params, tok, self._t_stores,
+                                  t_table, t_len0, kvq, pos, tm)
+        p_logits = v_logits.float().cpu().numpy()  # (B, W, V)
+
+        work: List[Tuple[Request, int]] = []
+        moves_t = {k: ([], []) for k in self._kinds}
+        moves_d = {k: ([], []) for k in self._kinds}
+        for slot, req in active:
+            self._tree_verify_commit(req, p_logits[slot], dls[slot], moves_t, moves_d, work)
+        self._compact_pools(moves_t, moves_d)
+        self._batcher.model_round(work)
+
+    def _tree_verify_commit(self, req: Request, p_win: np.ndarray, dl: int,
+                            moves_t, moves_d, work) -> None:
+        """Accept / commit one verified tree row: the greedy multi-branch
+        accept rule over the window logits (W, V) commits the accepted root
+        path plus the target's next token; queue the compaction moves that
+        relocate the path's BFS slots to the chain positions; advance both
+        sequences by the window and rewind back to committed - 1."""
+        w = self._tree_width
+        nodes, parents = req.tree_nodes, req.tree_parents
+        new, path, n_acc = speculative_tree_accept_greedy_host(nodes, parents, p_win)
+        req.commit(new)
+        req.drafted += len(nodes)
+        req.accepted += n_acc
+        req.controller.observe(n_acc, dl)
+        self._m_tree_nodes.inc(len(nodes))
+        # a chain of n nodes has n distinct parents; each repeat is a fork
+        self._m_tree_branches.inc(len(nodes) - len(set(parents)))
+        self._m_tree_depth.observe(n_acc)
+        work.append((req, dl))
+        # the accepted path sits at window slots base+1+path[i]; the chain
+        # needs it at base+1+i.  RoPE agrees by construction: path[i] is a
+        # depth-(i+1) node, encoded at position base+1+i, its destination.
+        if path != list(range(n_acc)):
+            for seq, mv in ((req.t_seq, moves_t[req.kv_kind]), (req.d_seq, moves_d[req.kv_kind])):
+                base = seq.length
+                mv[0].extend(seq.flat_slots(base + 1 + np.asarray(path, np.int64)).tolist())
+                mv[1].extend(seq.flat_slots(base + 1 + np.arange(n_acc, dtype=np.int64)).tolist())
+        # both models wrote the whole W-wide window; keep n_acc + 1
+        # (draft invariant: cache == committed[:-1], incl. the straggler)
+        for seq in (req.t_seq, req.d_seq):
+            seq.advance(w)
+            seq.rewind(w - 1 - n_acc, release_pages=False)
+        req.clear_tree()
+
+    def _compact_pools(self, moves_t, moves_d) -> None:
+        """Run the queued compaction moves: one ``_compact_slots`` call per
+        (pool, kind) that has any, each counted in
+        ``tree_compactions_total``."""
+        for moves, stores in ((moves_t, self._t_stores), (moves_d, self._d_stores)):
+            for kind, (src, dst) in moves.items():
+                if src:
+                    _compact_slots(stores[kind], torch.as_tensor(src, device=self.device),
+                                   torch.as_tensor(dst, device=self.device))
+                    self._m_tree_compactions.inc()
 
     def _output_for(self, req: Request) -> RequestOutput:
         """One streaming RequestOutput: the tokens delivered this step plus
@@ -477,9 +737,15 @@ class Engine:
         s["kv_path"] = "paged"
         s["par_mode"] = self.cfg.par_mode
         s["kv_quant"] = self.cfg.kv_quant
+        s["spec_mode"] = self.cfg.spec_mode
         s["kv_bytes_per_token"] = {
-            "target": float(self._t_pool.bytes_per_token()),
-            "draft": float(self._d_pool.bytes_per_token()),
+            "target": self._t_pool.bytes_per_token_by_kind(),
+            "draft": self._d_pool.bytes_per_token_by_kind(),
+        }
+        s["tree"] = {
+            "nodes": self._m_tree_nodes.value(),
+            "branches": self._m_tree_branches.value(),
+            "compactions": self._m_tree_compactions.value(),
         }
         s["table_upload_s"] = self._m_table_upload.value()
         return s

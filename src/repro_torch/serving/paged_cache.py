@@ -717,22 +717,29 @@ class PagedSequence:
 # ---------------------------------------------------------------------------
 
 
-def device_pool_store(pool: PagedKVPool, device) -> Dict[str, "object"]:
-    """Device storage for `pool`: ``{"k", "v"}`` torch tensors of shape
-    ``(n_layers, num_pages + 1, page_size, kv_heads, head_dim)`` on
-    ``device``, of the pool's dtype (a ``torch.dtype``).
+def device_pool_store(pool: PagedKVPool, device,
+                      kv_quant: Optional[str] = None) -> Dict[str, "object"]:
+    """Device storage for `pool` of one storage kind (``kv_quant``, default
+    the pool's own; a "mixed" pool builds one store per kind): ``{"k",
+    "v"}`` torch tensors of shape ``(n_layers, num_pages + 1, page_size,
+    kv_heads, head_dim)`` on ``device``, of the pool's dtype (a
+    ``torch.dtype``) for "none", int8 for "int8" plus float32 ``{"k_scale",
+    "v_scale"}`` of shape ``(..., kv_heads, 1)`` (one scale per slot and kv
+    head, on the same page layout).
 
     One extra SCRATCH page (index ``pool.num_pages``, never handed out by
     the allocator) absorbs writes from inactive batch rows, whose page
-    tables point every slot at it.  The model forward writes new tokens in
-    place (``models/layers.paged_attention_update``); speculative rewind
-    never touches the tensors (stale slots are masked by length, then
-    overwritten).  Only full-precision stores are ported (the int8 kind
-    comes with the K5 kernel)."""
+    tables point every slot at it.  The model forward writes new tokens
+    (and their scales) in place (``models/layers.paged_attention_update``);
+    speculative rewind never touches the tensors (stale slots are masked by
+    length, then overwritten)."""
     import torch  # deferred: the allocator stays importable without torch
 
-    if pool.kv_quant != "none":
-        raise NotImplementedError("device stores: kv_quant='none' only")
+    kind = kv_quant if kv_quant is not None else pool.kv_quant
+    if kind not in ("none", "int8"):
+        raise ValueError(
+            f"a device store holds one storage kind ('none' or 'int8'), got {kind!r}"
+        )
     if not isinstance(pool.dtype, torch.dtype):
         raise TypeError(f"device stores need a torch dtype, got {pool.dtype}")
     shape = (
@@ -742,6 +749,14 @@ def device_pool_store(pool: PagedKVPool, device) -> Dict[str, "object"]:
         pool.kv_heads,
         pool.head_dim,
     )
+    if kind == "int8":
+        sshape = shape[:-1] + (1,)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=pool.dtype, device=device),
         "v": torch.zeros(shape, dtype=pool.dtype, device=device),

@@ -173,12 +173,19 @@ def _bvq(x: torch.Tensor, bw: Params) -> torch.Tensor:
     return ops.bvq_linear(x, bw["cb"], bw["idx"])
 
 
-def _attend(i: int, q_, k_, v_, cache, offset, table) -> torch.Tensor:
-    """Layer i's attention: through the paged pool, into a dense cache
-    (prefill / dense decode), or cache-free causal attention."""
-    if table is not None:
-        pc = L.PagedCache(k=cache["attn"]["k"][i], v=cache["attn"]["v"][i],
-                          page_table=table, length=offset)
+def _attend(i: int, q_, k_, v_, cache, offset, paged) -> torch.Tensor:
+    """Layer i's attention: through the paged pool (fp or int8 stores,
+    causal or tree window), into a dense cache (prefill / dense decode), or
+    cache-free causal attention."""
+    if paged is not None:
+        table, tree_mask = paged
+        attn = cache["attn"]
+        pc = L.PagedCache(
+            k=attn["k"][i], v=attn["v"][i], page_table=table, length=offset,
+            k_scale=attn["k_scale"][i] if "k_scale" in attn else None,
+            v_scale=attn["v_scale"][i] if "v_scale" in attn else None,
+            tree_mask=tree_mask,
+        )
         return L.paged_attention_update(q_, k_, v_, pc)
     if cache is None:
         return L.flash_attention(q_, k_, v_, causal=True)
@@ -211,7 +218,7 @@ def apply_quantized_lm(
     b, s = tokens.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     r2 = rot.plan_rotation(cfg.d_ff)
-    offset, positions, table = L.forward_cache_ctx(cache, b, s)
+    offset, positions, paged = L.forward_cache_ctx(cache, b, s)
     x = qparams["embed"][tokens.long()].to(cfg.tdtype)
     for i, p in enumerate(qparams["layers"]):
         z = _norm_only(x)
@@ -220,7 +227,7 @@ def apply_quantized_lm(
         v_ = _qlinear(z, p["wv"]).reshape(b, s, kv, hd)
         q_ = L.rope(q_, positions, cfg.rope_theta)
         k_ = L.rope(k_, positions, cfg.rope_theta)
-        att = _attend(i, q_, k_, v_, cache, offset, table).reshape(b, s, h * hd)
+        att = _attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
         x = x + _qlinear(att, p["wo"])
         z2 = _norm_only(x)
         g_ = _qlinear(z2, p["w_gate"])
@@ -239,7 +246,7 @@ def apply_bvq_lm(
     """BVQ draft forward: weights decoded from codebooks on the fly."""
     b, s = tokens.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    offset, positions, table = L.forward_cache_ctx(cache, b, s)
+    offset, positions, paged = L.forward_cache_ctx(cache, b, s)
     x = qparams["embed"][tokens.long()].to(cfg.tdtype)
     for i, p in enumerate(qparams["layers"]):
         z = L.rmsnorm(p["ln1"], x)
@@ -248,7 +255,7 @@ def apply_bvq_lm(
         v_ = _bvq(z, p["wv"]).reshape(b, s, kv, hd).to(x.dtype)
         q_ = L.rope(q_, positions, cfg.rope_theta)
         k_ = L.rope(k_, positions, cfg.rope_theta)
-        att = _attend(i, q_, k_, v_, cache, offset, table).reshape(b, s, h * hd)
+        att = _attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
         x = x + _bvq(att, p["wo"]).to(x.dtype)
         z2 = L.rmsnorm(p["ln2"], x)
         g_ = _bvq(z2, p["w_gate"])

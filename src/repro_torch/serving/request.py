@@ -3,10 +3,11 @@ of repro/serving/request.py, greedy requests).
 
 A request moves QUEUED -> PREFILL -> DECODE -> FINISHED.  While in DECODE it
 owns one PagedSequence per model (target + draft) and a ``DraftController``
-that gives its draft length per round.  The reference's per-request PRNG
-key streams (sampled requests), stop strings, streaming sinks, latency
-timestamps and the fused-PAR / tree phase state are not ported yet; the
-engine refuses requests that need them.
+that gives its draft length per round; under ``spec_mode="tree"`` it also
+carries the draft tree in flight.  The reference's per-request PRNG key
+streams (sampled requests), stop strings, streaming sinks, latency
+timestamps and the fused-PAR phase state are not ported yet; the engine
+refuses requests that need them.
 """
 from __future__ import annotations
 
@@ -52,6 +53,9 @@ class Request:
     prompt: np.ndarray  # (S,) int32, S >= 2
     max_new_tokens: int
     sampling: Optional[SamplingParams] = None  # None => greedy defaults
+    # resolved KV storage kind ("none" | "int8"), stamped by the engine at
+    # add_request: which device store the request's pages live in
+    kv_kind: str = "none"
 
     state: RequestState = RequestState.QUEUED
     out: List[int] = dataclasses.field(default_factory=list)
@@ -64,6 +68,17 @@ class Request:
     drafted: int = 0
     accepted: int = 0
     _delta_mark: int = 0
+
+    # -- tree phase state (spec_mode="tree"): tree_dl is the round's target
+    # depth (None between rounds); tree_nodes[i] / tree_parents[i] are the
+    # drafted token and parent NODE index (-1 = root) of window slot 1+i in
+    # drafting (BFS) order; tree_depth is the deepest fully grown level.
+    # (The reference's tree_draws / tree_q serve sampled trees; they come
+    # with the sampled accept rule.)
+    tree_dl: Optional[int] = None
+    tree_nodes: List[int] = dataclasses.field(default_factory=list)
+    tree_parents: List[int] = dataclasses.field(default_factory=list)
+    tree_depth: int = 0
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -81,6 +96,25 @@ class Request:
         """Worst-case cache length: committed-1 positions plus a full
         draft/verify window (+1 for the verify bonus / draft straggler)."""
         return self.prompt.shape[0] + self.max_new_tokens + max_dl
+
+    def begin_tree(self, dl: int) -> None:
+        """Open a fresh draft tree targeting depth `dl`."""
+        if dl < 1:
+            raise ValueError(f"tree depth must be >= 1, got {dl}")
+        self.clear_tree()
+        self.tree_dl = dl
+
+    def clear_tree(self) -> None:
+        self.tree_dl = None
+        self.tree_nodes = []
+        self.tree_parents = []
+        self.tree_depth = 0
+
+    @property
+    def tree_full(self) -> bool:
+        """Ready to verify: the tree reached its target depth (or spent its
+        node budget, in which case the grower stamps tree_depth forward)."""
+        return self.tree_dl is not None and self.tree_depth >= self.tree_dl
 
     def commit(self, tokens: List[int]) -> None:
         """Append verified tokens and update the tip.  A round may overshoot

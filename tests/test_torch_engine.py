@@ -1,7 +1,8 @@
 """The port's Engine against the JAX Engine on the quantized smoke pair
 (W4A8 target, BVQ draft), weights carried across: greedy tokens must match
 token for token at batch 1 and with 4 requests at max_batch=4.  Also page
-return on abort and the refusals of what the port does not carry yet."""
+return on abort and the refusals of what the port does not carry yet.
+int8 KV and tree speculation are held in tests/test_torch_tree_int8.py."""
 import numpy as np
 import pytest
 
@@ -97,8 +98,11 @@ def test_unported_settings_raise(pairs):
         eng.add_request(_prompts(1, 3)[0], SamplingParams(temperature=0.7))
     with pytest.raises(NotImplementedError):
         eng.add_request(_prompts(1, 3)[0], SamplingParams(stop=("7",)))
-    for cfg in (EngineConfig(spec_mode="tree"), EngineConfig(par_mode="wdos"),
-                EngineConfig(kv_quant="int8"), EngineConfig(prefix_cache=True),
-                EngineConfig(adaptive=True), EngineConfig(profile_every_n=2)):
+    tree = Engine(tt, td, EngineConfig(max_batch=1, spec_mode="tree"), device="cpu")
+    with pytest.raises(NotImplementedError):
+        tree.add_request(_prompts(1, 3)[0], SamplingParams(temperature=0.7))
+    for cfg in (EngineConfig(par_mode="wdos"), EngineConfig(spec_mode="tree", par_mode="wdos"),
+                EngineConfig(prefix_cache=True), EngineConfig(adaptive=True),
+                EngineConfig(profile_every_n=2)):
         with pytest.raises(NotImplementedError):
             Engine(tt, td, cfg, device="cpu")
