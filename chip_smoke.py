@@ -11,7 +11,8 @@ Phases, in order (any failure exits non-zero before the final line):
 2. Kernels against their plain versions at the main path's full-width
    shapes: one JSON line per (kernel, shape) with the error, the stated
    tolerance, the kernel's and the plain version's times, one PyTorch
-   library call's time as a yardstick, and the card's bound for the work.
+   library call's time as a yardstick, and the card's bound for the work
+   (and, for the two matmuls, whether a second call is bitwise equal).
 3. The main path at full width: the paper pair (LLaMA2-7B widths, W4A8 +
    LRU target with all 32 layers, built layer by layer; LLaMA-68M widths,
    BVQ draft) served by ``Engine`` at ``EngineConfig()`` defaults, 4 greedy
@@ -88,6 +89,9 @@ PATH_OF = {"w4a8_matmul": "main_path", "block_rotate": "main_path", "bvq_matmul"
 # decode_attention_int8, so only its kernel phase runs it; the summary
 # line still reads its (zero) count from the main path's counters
 NO_PATH = {"decode_attention_int8"}
+# the CUDA symbols of the port's kernels, as the profiler names them
+PORT_SYMBOLS = ("w4a8_mma_kernel", "bvq_mma_kernel", "block_rotate_kernel", "paged_attn_kernel",
+                "decode_attn_int8_kernel")
 
 
 def emit(**record) -> None:
@@ -120,19 +124,26 @@ def phase_build():
 
 
 class Timer:
-    """Median per-launch device time with a cold L2: a 64 MB buffer is
-    rewritten before every timed launch (the main path reads each weight
-    once per forward, so it finds the L2 cold too)."""
+    """Median per-launch device time with a cold L2: a 64 MB buffer is read
+    before every timed launch (the main path reads each weight once per
+    forward, so it finds the L2 holding other, clean data too; a write
+    would leave it dirty, and the write-backs would slow the timed
+    launch).  A spin of ~0.2 ms on the card follows, so the host has
+    queued the launch before the start event fires: the events then
+    bracket device time, not the wrapper's host overhead."""
+
+    SPIN_CYCLES = 400_000
 
     def __init__(self, device):
-        self.scratch = torch.empty(64 << 20, dtype=torch.uint8, device=device)
+        self.scratch = torch.zeros(64 << 20, dtype=torch.uint8, device=device)
 
     def ms(self, fn, iters: int = 15) -> float:
         fn()
         torch.cuda.synchronize()
         pairs = []
         for _ in range(iters):
-            self.scratch.zero_()
+            self.scratch.sum()
+            torch.cuda._sleep(self.SPIN_CYCLES)
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
@@ -151,23 +162,26 @@ def bound_ms(bytes_moved: float, ops: float, op_type: str):
 def check_w4a8(dev, timer, g, m, k, n):
     from repro_torch.core import quantization as q
     from repro_torch.kernels import ref
-    from repro_torch.kernels.w4a8_matmul import w4a8_matmul
+    from repro_torch.kernels.w4a8_matmul import prepack, w4a8_matmul
 
     x = torch.randn((m, k), generator=g, device=dev)
     w = torch.randn((k, n), generator=g, device=dev) * 0.02
     xq, sx = q.quantize_act_int8(x)
     wq, sw = q.quantize_weight_int(w, bits=4, axis=0)
     wp = q.pack_int4(wq, axis=0)
-    got = w4a8_matmul(xq, wp, sx, sw)
+    wpp = prepack(wp)  # the layout the model's weights are stored in
+    got = w4a8_matmul(xq, wpp, sx, sw)
     want = ref.w4a8_matmul_ref2(xq, wp, sx, sw)
-    err = float((got - want).abs().max())
+    err = max(float((got - want).abs().max()),
+              float((w4a8_matmul(xq, wp, sx, sw) - want).abs().max()))  # reference layout
     tol = 1e-6 * float(want.abs().max())  # the reference test's rtol 1e-6
     w_deq = (wq.float() * sw).to(torch.bfloat16)
     xb = x.to(torch.bfloat16)
     bound, by = bound_ms(m * k + k * n / 2 + 4 * m + 4 * n + 4 * m * n, 2.0 * m * k * n, "int8")
     return dict(
         max_abs_err=err, tol=tol,
-        kernel_ms=timer.ms(lambda: w4a8_matmul(xq, wp, sx, sw)),
+        repeat_bitwise_equal=bool(torch.equal(got, w4a8_matmul(xq, wpp, sx, sw))),
+        kernel_ms=timer.ms(lambda: w4a8_matmul(xq, wpp, sx, sw)),
         plain_ms=timer.ms(lambda: ref.w4a8_matmul_ref2(xq, wp, sx, sw)),
         library_ms=timer.ms(lambda: torch.matmul(xb, w_deq)),
         bound_ms=bound, bound_by=by,
@@ -211,13 +225,13 @@ def check_bvq(dev, timer, g, m, k, n):
     got = bvq_matmul(x, cb, idx)
     want = ref.bvq_matmul_ref2(x, cb, idx)
     w_dense = bvq.reconstruct_dense(cb, idx).to(torch.bfloat16)
-    c, v = cb.shape[1], cb.shape[2]
     bytes_moved = 2 * m * k + 4 * cb.numel() + 4 * idx.numel() + 4 * m * n
     bound, by = bound_ms(bytes_moved, 2.0 * m * k * n, "bf16")
     return dict(
         # same bf16 operands on both sides; f32 sums in another order
         max_abs_err=float((got - want).abs().max()),
         tol=1e-4 * (1.0 + float(want.abs().max())),
+        repeat_bitwise_equal=bool(torch.equal(got, bvq_matmul(x, cb, idx))),
         kernel_ms=timer.ms(lambda: bvq_matmul(x, cb, idx)),
         plain_ms=timer.ms(lambda: ref.bvq_matmul_ref2(x, cb, idx)),
         library_ms=timer.ms(lambda: torch.matmul(x, w_dense)),
@@ -364,6 +378,10 @@ def phase_kernels(dev, seed):
          lambda: check_w4a8(dev, timer, g, mb * win, 11008, 4096)),
         ("w4a8_matmul", "M=32 K=4096 N=32000 (head, verify)",
          lambda: check_w4a8(dev, timer, g, mb * win, 4096, 32000)),
+        ("w4a8_matmul", "M=72 K=4096 N=11008 (w_gate/w_up, tree verify 8x9)",
+         lambda: check_w4a8(dev, timer, g, mb * 9, 4096, 11008)),
+        ("w4a8_matmul", "M=1 K=4096 N=11008 (w_gate/w_up, one-token step)",
+         lambda: check_w4a8(dev, timer, g, 1, 4096, 11008)),
         ("w4a8_matmul", "M=128 K=4096 N=11008 (prefill, 128-token prompt)",
          lambda: check_w4a8(dev, timer, g, 128, 4096, 11008)),
         ("block_rotate", "tokens=32 n=11008 m=4 k=6 bf16 (R2, verify)",
@@ -374,6 +392,12 @@ def phase_kernels(dev, seed):
          lambda: check_bvq(dev, timer, g, mb, 3072, 768)),
         ("bvq_matmul", "M=8 K=768 N=768 bf16 (wq/wk/wv/wo, draft step)",
          lambda: check_bvq(dev, timer, g, mb, 768, 768)),
+        ("bvq_matmul", "M=72 K=768 N=3072 bf16 (w_gate/w_up, tree draft 8x9)",
+         lambda: check_bvq(dev, timer, g, mb * 9, 768, 3072)),
+        ("bvq_matmul", "M=72 K=3072 N=768 bf16 (w_down, tree draft 8x9)",
+         lambda: check_bvq(dev, timer, g, mb * 9, 3072, 768)),
+        ("bvq_matmul", "M=72 K=768 N=768 bf16 (wq/wk/wv/wo, tree draft 8x9)",
+         lambda: check_bvq(dev, timer, g, mb * 9, 768, 768)),
         ("paged_attention", "target verify B=8 W=4 KVS=32 hd=128 ps=16 bf16",
          lambda: check_paged(dev, timer, g, mb, win, 32, 128, 16, 11,
                              [163, 100, 45, 129, 4, 4, 7, 88])),
@@ -412,6 +436,8 @@ def phase_kernels(dev, seed):
         summary.setdefault(name, dict(rec, shape=shape))
         if not rec["max_abs_err"] <= rec["tol"]:
             failed.append(f"{name} [{shape}]: err {rec['max_abs_err']} > tol {rec['tol']}")
+        if not rec.get("repeat_bitwise_equal", True):
+            failed.append(f"{name} [{shape}]: two calls on the same inputs differ")
         if not rec.get("poisoned_tail_bitwise_equal", True):
             failed.append(f"{name} [{shape}]: a poisoned tail past length changed the output")
     if failed:
@@ -553,8 +579,9 @@ def phase_profile(dev, pair, path, cfg, kinds, rounds: int = 3) -> None:
     rounds, then ``rounds`` rounds under torch.profiler (CPU and CUDA
     activities).  Prints wall ms per round, summed device-kernel ms per
     round (their ratio is the device's busy share; the profiler adds host
-    overhead, so the share is a lower bound) and the top entries by device
-    and by host time."""
+    overhead, so the share is a lower bound), each port kernel's device ms
+    and launches per round, and the top entries by device and by host
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Engine, SamplingParams
@@ -579,9 +606,16 @@ def phase_profile(dev, pair, path, cfg, kinds, rounds: int = 3) -> None:
 
     device_ms = sum(dev_us(e) for e in events) / 1e3
     top_dev = sorted(events, key=dev_us, reverse=True)[:12]
+    port = {}  # the port's kernels by their CUDA symbol: [ms, launches] per round
+    for e in events:
+        for sym in PORT_SYMBOLS:
+            if sym in e.key:
+                ms, n = port.get(sym, (0.0, 0))
+                port[sym] = (ms + dev_us(e) / 1e3 / rounds, n + e.count // rounds)
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     emit(phase="profile", path=path, rounds=rounds, wall_ms_per_round=wall * 1e3 / rounds,
          device_ms_per_round=device_ms / rounds, device_busy_share=device_ms / (wall * 1e3),
+         port_kernels_ms_per_round={k: list(v) for k, v in port.items()},
          top_device_ms_per_round=[[e.key[:80], dev_us(e) / 1e3 / rounds, e.count // rounds]
                                   for e in top_dev],
          top_host_ms_per_round=[[e.key[:80], e.self_cpu_time_total / 1e3 / rounds,

@@ -10,11 +10,16 @@ named by a hash of the sources and flags, and is built at first use.
 ``launches`` counts kernel launches per wrapper: each wrapper adds one
 where it launches its kernel and nowhere else, so a caller can show that
 a run went through the kernels (set it to zero with ``launches.clear()``).
+
+``scratch`` hands the split-K kernels their workspaces and arrival
+counters: allocated once per (device, stream, name), grown when a call
+needs more, never filled per call (the kernels re-arm the counters).
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -22,12 +27,12 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 __all__ = ["launches", "nvcc", "build", "lib", "check", "dtype_code", "stream_ptr",
-           "require_cuda"]
+           "require_cuda", "sm_count", "scratch", "Plan", "token_tiles", "split_k_elems"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -42,20 +47,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C signatures: every entry point returns cudaGetLastError() as int
 _SIGNATURES = {
-    "repro_w4a8_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_w4a8_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_block_rotate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
-    "repro_bvq_matmul": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_bvq_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P),
     "repro_paged_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_decode_attn_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_w4a8_cols_per_block": (),
-    "repro_w4a8_rows_per_block": (),
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_scratch: Dict[Tuple[torch.device, int, str], torch.Tensor] = {}
 
 
 def nvcc() -> str:
@@ -158,3 +163,54 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:
         if not t.is_contiguous():
             raise ValueError(f"{name}: inputs must be contiguous")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def scratch(device: torch.device, name: str, numel: int, dtype: torch.dtype) -> torch.Tensor:
+    """A cached buffer of at least ``numel`` elements for the current stream
+    of ``device``, zeroed when it is (re)allocated and never again: a
+    kernel that uses it as arrival counters leaves them at zero."""
+    key = (device, stream_ptr(device), name)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < numel or buf.dtype != dtype:
+        buf = torch.zeros(max(numel, 2 * buf.numel() if buf is not None else 0), dtype=dtype,
+                          device=device)
+        _scratch[key] = buf
+    return buf
+
+
+class Plan(NamedTuple):
+    """How one matmul call tiles its work: ``mt`` token tiles of 8 per
+    pass, ``passes`` over the weight (``MAX_TOKENS`` tokens each), ``ctas``
+    64-channel tiles, and K split ``ksplit`` ways of ``stages_per_split``
+    of the kernel's ``k_stages`` pipeline stages."""
+
+    mt: int
+    passes: int
+    ctas: int
+    ksplit: int
+    stages_per_split: int
+    k_stages: int
+
+
+MAX_TOKENS = 128  # tokens per pass of the matmul kernels
+
+
+def token_tiles(m: int) -> Tuple[int, int]:
+    """(mt, passes) for M tokens: the smallest power-of-two count of 8-token
+    tiles holding one pass of at most MAX_TOKENS tokens, and the passes."""
+    mt = 1
+    while mt * 8 < min(m, MAX_TOKENS):
+        mt *= 2
+    return mt, -(-m // MAX_TOKENS)
+
+
+def split_k_elems(p: Plan) -> int:
+    """Workspace elements of a split-K call (csrc/common.cuh split_k_reduce:
+    a 4-element vector per lane of a 4-warp group, token tile, split and
+    output tile)."""
+    return p.passes * p.ctas * p.ksplit * p.mt * 128 * 4

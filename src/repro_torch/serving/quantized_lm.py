@@ -25,6 +25,7 @@ from repro_torch.core import bvq as bvq_mod
 from repro_torch.core import quantization as q
 from repro_torch.core import rotation as rot
 from repro_torch.kernels import ops
+from repro_torch.kernels.w4a8_matmul import prepack
 from repro_torch.models import layers as L
 from repro_torch.models.common import Family, ModelConfig
 
@@ -67,9 +68,10 @@ def _rot_out(w: torch.Tensor, plan) -> torch.Tensor:
 
 
 def _quant_pack(w: torch.Tensor) -> Params:
-    """(K, N) -> int4 packed along K + per-output-channel scales."""
+    """(K, N) -> int4 packed along K, in the W4A8 kernel's fragment order
+    (``w4a8_matmul.prepack``), + per-output-channel scales."""
     wq, sw = q.quantize_weight_int(w.float(), bits=4, axis=0)
-    return {"packed": q.pack_int4(wq, axis=0), "sw": sw.reshape(1, -1)}
+    return {"packed": prepack(q.pack_int4(wq, axis=0)), "sw": sw.reshape(1, -1)}
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -290,7 +292,8 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Para
     -> the port's params on ``device``.
 
     ``mode`` names the tree: "bf16" (``lm.init_lm``), "w4a8"
-    (``quantize_dense_lm``) or "bvq" (``bvq_compress_lm``, each BVQWeight
+    (``quantize_dense_lm``; the packed weights are reordered for the W4A8
+    kernel, ``w4a8_matmul.prepack``) or "bvq" (``bvq_compress_lm``, each BVQWeight
     given as its fields ``codebooks``, ``scales``, ``indices``, ``shape``,
     ``vec_dim``).  Layer-stacked arrays (leading axis n_layers) are split
     into the port's per-layer list; float weights take the model dtype."""
@@ -316,7 +319,7 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Para
 
     if mode == "w4a8":
         def qw(d):
-            return {"packed": _tensor(d["packed"], device, torch.int8),
+            return {"packed": prepack(_tensor(d["packed"], device, torch.int8)),
                     "sw": _tensor(d["sw"], device, torch.float32)}
 
         names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")

@@ -17,7 +17,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.bvq_matmul import bvq_matmul
 from repro_torch.kernels.fwht import block_rotate
 from repro_torch.kernels.paged_attn import paged_attention
-from repro_torch.kernels.w4a8_matmul import w4a8_matmul
+from repro_torch.kernels.w4a8_matmul import prepack, w4a8_matmul
 
 
 def _t(a, device="cpu"):
@@ -184,18 +184,25 @@ def test_lru_rotate_plans_roundtrip():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,k,n", [(1, 4096, 4096), (4, 11008, 4096), (32, 4096, 11008),
-                                   (128, 128, 344), (7, 256, 64)])
-def test_cuda_w4a8_matches_plain(cuda, m, k, n):
-    xq, wq, wp, sx, sw = _w4a8_inputs(m, k, n)
-    args = [_t(a, cuda) for a in (xq, wp, sx, sw)]
-    got = w4a8_matmul(*args)
-    torch.cuda.synchronize()
-    want = ref.w4a8_matmul_ref2(*args)
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
-    ones = w4a8_matmul(args[0], args[1], torch.ones_like(args[2]), torch.ones_like(args[3]))
-    exact = xq.astype(np.int64) @ wq.astype(np.int64)
-    assert np.array_equal(ones.cpu().numpy().astype(np.int64), exact)
+@pytest.mark.parametrize("k,n", [(344, 344), (344, 4096), (344, 32000), (4096, 344),
+                                 (4096, 4096), (4096, 32000), (11008, 344), (11008, 4096),
+                                 (11008, 32000), (4096, 11008), (128, 344), (256, 64)])
+def test_cuda_w4a8_matches_plain(cuda, k, n):
+    """Bit-exact against the plain version at every token count the paths
+    give (decode 1, ragged 7, verify 32, tree verify 72, prefill 128), in
+    both weight layouts; with unit scales the float64 product (exact: every
+    partial sum is an integer below 2**53) must equal the kernel's."""
+    xq_all, wq, wp, sx_all, sw = (_t(a, cuda) for a in _w4a8_inputs(128, k, n))
+    wpp = prepack(wp)
+    for m in (1, 7, 32, 72, 128):
+        xq, sx = xq_all[:m].contiguous(), sx_all[:m].contiguous()
+        want = ref.w4a8_matmul_ref2(xq, wp, sx, sw)
+        for w in (wpp, wp):
+            got = w4a8_matmul(xq, w, sx, sw)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        ones = w4a8_matmul(xq, wpp, torch.ones_like(sx), torch.ones_like(sw))
+        assert torch.equal(ones.double(), xq.double() @ wq.double()), m
 
 
 @pytest.mark.cuda
@@ -215,7 +222,13 @@ def test_cuda_block_rotate_matches_plain(cuda, m, k, nb, tokens, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("mk,nn,vec,cbs,bc", [((8, 64), 48, 4, 32, 16), ((4, 768), 3072, 4, 64, 32),
-                                              ((33, 256), 64, 8, 16, 64)])
+                                              ((33, 256), 64, 8, 16, 64),
+                                              ((8, 768), 3072, 4, 64, 32),
+                                              ((8, 3072), 768, 4, 64, 32),
+                                              ((8, 768), 768, 4, 64, 32),
+                                              ((72, 768), 3072, 4, 64, 32),
+                                              ((72, 3072), 768, 4, 64, 32),
+                                              ((72, 768), 768, 4, 64, 32)])
 def test_cuda_bvq_matches_plain(cuda, mk, nn, vec, cbs, bc):
     m, k = mk
     x, _, cb, idx = _bvq_inputs(m, k, nn, vec, cbs, bc)
@@ -225,6 +238,27 @@ def test_cuda_bvq_matches_plain(cuda, mk, nn, vec, cbs, bc):
     xb = args[0].to(torch.bfloat16)
     torch.testing.assert_close(bvq_matmul(xb, *args[1:]), ref.bvq_matmul_ref2(xb, *args[1:]),
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_matmuls_bitwise_deterministic(cuda):
+    """Two calls on the same inputs give the same bits, at shapes whose
+    plans split K (the partials meet through the workspace)."""
+    from repro_torch.kernels import bvq_matmul as bvq_mod
+    from repro_torch.kernels import w4a8_matmul as w4a8_mod
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for m, k, n in ((32, 4096, 4096), (72, 11008, 4096), (1, 344, 344)):
+        xq, _, wp, sx, sw = _w4a8_inputs(m, k, n)
+        args = [_t(a, cuda) for a in (xq, prepack(_t(wp)), sx, sw)]
+        assert w4a8_mod.plan(m, k, n, sms).ksplit > 1 or k == 344
+        assert torch.equal(w4a8_matmul(*args), w4a8_matmul(*args))
+    for m, k, n in ((8, 3072, 768), (72, 3072, 768), (72, 768, 3072)):
+        x, _, cb, idx = _bvq_inputs(m, k, n, 4, 64, 32)
+        assert bvq_mod.plan(m, k, n, sms).ksplit > 1
+        for dt in (torch.float32, torch.bfloat16):
+            args = (_t(x, cuda).to(dt), _t(cb, cuda), _t(idx, cuda))
+            assert torch.equal(bvq_matmul(*args), bvq_matmul(*args))
 
 
 @pytest.mark.cuda

@@ -25,6 +25,7 @@ from repro.core import bvq as jbvq
 from repro.models import lm as jlm
 from repro.serving import quantized_lm as jqlm
 from repro_torch.configs.paper_pair import DLM_SMOKE, TLM_SMOKE
+from repro_torch.kernels.w4a8_matmul import unprepack
 from repro_torch.serving import quantized_lm as tqlm
 
 ROW_EXACT = 1e-5
@@ -159,5 +160,6 @@ def test_quantize_dense_lm_matches_reference(target):
     ]
     for mine, ref in pairs:
         np.testing.assert_allclose(mine["sw"].numpy(), np.asarray(ref["sw"]), rtol=1e-5)
-        same = np.mean(mine["packed"].numpy() == np.asarray(ref["packed"]))
+        k, n = 2 * np.asarray(ref["packed"]).shape[0], np.asarray(ref["packed"]).shape[1]
+        same = np.mean(unprepack(mine["packed"], k, n).numpy() == np.asarray(ref["packed"]))
         assert same > 0.999, same
