@@ -12,7 +12,9 @@ Phases, in order (any failure exits non-zero before the final line):
    shapes: one JSON line per (kernel, shape) with the error, the stated
    tolerance, the kernel's and the plain version's times, one PyTorch
    library call's time as a yardstick, and the card's bound for the work
-   (and, for the two matmuls, whether a second call is bitwise equal).
+   (and, for the two matmuls and both attention kernels, whether a second
+   call is bitwise equal; for the attention kernels, whether values past
+   each row's length, poisoned, leave the output bitwise unchanged).
 3. The main path at full width: the paper pair (LLaMA2-7B widths, W4A8 +
    LRU target with all 32 layers, built layer by layer; LLaMA-68M widths,
    BVQ draft) served by ``Engine`` at ``EngineConfig()`` defaults, 4 greedy
@@ -252,21 +254,45 @@ def _random_tree_masks(g, b, w, active):
     return masks
 
 
+def _row_sees(ln, w, mask=None):
+    """Whether every query row of a window of length ``ln`` sees a position.
+    Causal: row 0 sees position len - W.  Tree: a non-empty prefix is seen
+    by every row, else row w sees the window slots rel >= W - len its mask
+    marks."""
+    if mask is None:
+        return ln >= w
+    return ln > w or (ln > 0 and bool((mask[:, w - ln:] > 0.5).any(axis=1).all()))
+
+
 def _pages_walked(lengths, w, ps, mp, masks=None):
     """Pages the paged attention function must read, summed over rows: the
     pages holding positions < len, or every page of the row when one of its
     query rows sees no position (that row's output is then the mean over
-    all of them, as in the reference).  Causal: row 0 sees position len - W.
-    Tree: a non-empty prefix is seen by every row, else row w sees the
-    window slots rel >= W - len its mask marks."""
-    total = 0
+    all of them, as in the reference)."""
+    return sum(min(mp, -(-ln // ps)) if _row_sees(ln, w, None if masks is None else masks[i])
+               else mp for i, ln in enumerate(lengths))
+
+
+def _poison_tails(kp, vp, vs, table, lengths, w, ps, masks=None):
+    """Copies of the pools (and of the V scales ``vs`` of int8 pools, else
+    None) with every slot past a row's length inside the row's last page
+    poisoned: 1e6 (int8 pools: K at 127, V scales at 1e6).  Rows where some
+    query row sees nothing are left alone: they average over every slot,
+    as the reference does."""
+    kp2, vp2 = kp.clone(), vp.clone()
+    vs2 = None if vs is None else vs.clone()
     for i, ln in enumerate(lengths):
-        if masks is None:
-            sees = ln >= w
+        if (not _row_sees(ln, w, None if masks is None else masks[i]) or ln % ps == 0
+                or ln >= table.shape[1] * ps):
+            continue
+        page = int(table[i, ln // ps])
+        if vs is None:
+            kp2[page, ln % ps:] = 1e6
+            vp2[page, ln % ps:] = 1e6
         else:
-            sees = ln > w or (ln > 0 and bool((masks[i][:, w - ln:] > 0.5).any(axis=1).all()))
-        total += min(mp, -(-ln // ps)) if sees else mp
-    return total
+            kp2[page, ln % ps:] = 127
+            vs2[page, ln % ps:] = 1e6
+    return kp2, vp2, vs2
 
 
 def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, tree=False):
@@ -291,6 +317,11 @@ def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, 
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     got = paged_attention(q, kp, vp, table, lens, **kw)
     want = ref.paged_attn_ref(q, kp, vp, table, lens, **kw)
+    kp2, vp2, vs2 = _poison_tails(kp, vp, vs if quantized else None, table, lengths, w, ps,
+                                  masks)
+    kw2 = dict(kw, v_scale=vs2) if quantized else kw
+    poisoned = paged_attention(q, kp2, vp2, table, lens, **kw2)
+    del kp2, vp2, vs2
     # library yardstick: SDPA over the gathered (dequantized) K/V, masked
     kd = ref.gather_pages_ref(kp, table).float()
     vd = ref.gather_pages_ref(vp, table).float()
@@ -313,11 +344,15 @@ def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, 
     mask = mask[:, None]
     walked = _pages_walked(lengths, w, ps, mp, masks)
     slot_bytes = kvs * hd * (1 if quantized else 2) + (4 * kvs if quantized else 0)
-    io_bytes = 2 * 4 * q.numel() + 4 * table.numel() + 4 * b + (4 * b * w * w if tree else 0)
+    # q read in its own dtype, the output written in f32
+    io_bytes = ((q.element_size() + 4) * q.numel() + 4 * table.numel() + 4 * b
+                + (4 * b * w * w if tree else 0))
     bound, by = bound_ms(2 * walked * ps * slot_bytes + io_bytes,
                          4.0 * w * hd * kvs * walked * ps, "bf16")
     return dict(
         max_abs_err=float((got - want).abs().max()), tol=2e-5,
+        repeat_bitwise_equal=bool(torch.equal(got, paged_attention(q, kp, vp, table, lens, **kw))),
+        poisoned_tail_bitwise_equal=bool(torch.equal(got, poisoned)),
         kernel_ms=timer.ms(lambda: paged_attention(q, kp, vp, table, lens, **kw)),
         plain_ms=timer.ms(lambda: ref.paged_attn_ref(q, kp, vp, table, lens, **kw)),
         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
@@ -349,10 +384,11 @@ def check_decode_int8(dev, timer, g, b, s, kvs, hd, length):
     vd = (vq.float() * vs[..., None]).to(torch.bfloat16).permute(0, 2, 1, 3)
     mask = (torch.arange(s, device=dev) < length)[None, None, None]
     n = min(length, s) if length > 0 else s
-    bound, by = bound_ms(2 * b * n * kvs * (hd + 4) + 2 * 4 * q.numel() + 4,
+    bound, by = bound_ms(2 * b * n * kvs * (hd + 4) + (q.element_size() + 4) * q.numel() + 4,
                          4.0 * hd * kvs * b * n, "bf16")
     return dict(
         max_abs_err=float((got - want).abs().max()), tol=2e-5,
+        repeat_bitwise_equal=bool(torch.equal(got, decode_attention_int8(*args))),
         poisoned_tail_bitwise_equal=bool(torch.equal(got, poisoned)),
         kernel_ms=timer.ms(lambda: decode_attention_int8(*args)),
         plain_ms=timer.ms(lambda: ref.decode_attn_int8_ref(*args)),
@@ -424,6 +460,14 @@ def phase_kernels(dev, seed):
              lambda q=quantized: check_paged(dev, timer, g, mb, tw, 12, 64, 16, 12, tlens,
                                              quantized=q, tree=True)),
         ]
+    # long context: one 4096-token row per pool kind beside K7's 4096 cache
+    long_lens = [4096, 2900, 1500, 17]
+    for name, quantized in (("paged_attention", False), ("paged_attention_int8", True)):
+        kind = "int8" if quantized else "bf16"
+        cases.append((name, f"long context B=4 W=1 KVS=32 hd=128 ps=16 {kind} "
+                            f"lengths {'/'.join(map(str, long_lens))}",
+                      lambda q=quantized: check_paged(dev, timer, g, 4, 1, 32, 128, 16, 256,
+                                                      long_lens, quantized=q)))
     for length in (4096, 1500, 17, 1):
         cases.append(("decode_attention_int8",
                       f"full LLaMA2-7B cache B=4 S=4096 KVS=32 G=1 hd=128 length={length}",

@@ -11,9 +11,10 @@ named by a hash of the sources and flags, and is built at first use.
 where it launches its kernel and nowhere else, so a caller can show that
 a run went through the kernels (set it to zero with ``launches.clear()``).
 
-``scratch`` hands the split-K kernels their workspaces and arrival
-counters: allocated once per (device, stream, name), grown when a call
-needs more, never filled per call (the kernels re-arm the counters).
+``scratch`` hands the split-K and split-sequence kernels their workspaces
+and arrival counters: allocated once per (device, stream, name), grown
+when a call needs more, never filled per call (the kernels re-arm the
+counters).
 """
 from __future__ import annotations
 
@@ -32,7 +33,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import torch
 
 __all__ = ["launches", "nvcc", "build", "lib", "check", "dtype_code", "stream_ptr",
-           "require_cuda", "sm_count", "scratch", "Plan", "token_tiles", "split_k_elems"]
+           "require_cuda", "sm_count", "scratch", "Plan", "token_tiles", "split_k_elems",
+           "attn_splits", "attn_scratch"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -51,9 +53,10 @@ _SIGNATURES = {
     "repro_block_rotate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_bvq_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P),
-    "repro_paged_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "repro_decode_attn_int8": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_paged_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_decode_attn_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -214,3 +217,30 @@ def split_k_elems(p: Plan) -> int:
     a 4-element vector per lane of a 4-warp group, token tile, split and
     output tile)."""
     return p.passes * p.ctas * p.ksplit * p.mt * 128 * 4
+
+
+MIN_SPLIT_POSITIONS = 256  # least positions a split of an attention walk holds
+ATTN_BLOCKS_PER_SM = 2  # blocks of the attention kernels resident on an SM
+
+
+def attn_splits(sms: int, pairs: int, positions: int) -> int:
+    """Blocks per (request, kv head) for the attention kernels
+    (csrc/flash_decode.cuh), from static shapes only: ``pairs`` (request,
+    kv head) pairs over a walk of at most ``positions`` cached positions.
+    As many splits as keep the blocks within one wave of ATTN_BLOCKS_PER_SM
+    blocks per SM (a second, partial wave costs more than the splits win),
+    but none shorter than MIN_SPLIT_POSITIONS, so the main path's rows (<= 12
+    pages) take one block and no workspace."""
+    fit = ATTN_BLOCKS_PER_SM * sms // max(pairs, 1)
+    return max(1, min(fit, positions // MIN_SPLIT_POSITIONS))
+
+
+def attn_scratch(device: torch.device, splits: int, pairs: int, rows: int,
+                 hd: int) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(workspace, arrival counters) of a split attention call, or (None,
+    None) for one split: (pairs, splits, rows, hd + 2) f32 partials, and a
+    counter per pair and group of query rows (``rows`` bounds the groups)."""
+    if splits == 1:
+        return None, None
+    ws = scratch(device, "attn_ws", pairs * splits * rows * (hd + 2), torch.float32)
+    return ws, scratch(device, "attn_cnt", pairs * rows, torch.int32)

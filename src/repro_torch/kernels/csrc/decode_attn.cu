@@ -13,128 +13,67 @@
 // per byte, so it is bound by device-memory bytes.
 //
 // Design: the TPU walked the cache in block_s tiles along a sequential grid
-// dimension, carrying m / l / acc in scratch.  Here one block per (b,
-// kv-head) loops over the cache itself in tiles of kTile positions (the
-// wrapper's block_s, a TPU tiling parameter, is not used): it stages the
-// int8 K and V rows of a tile as floats in shared memory with their scales,
-// scores the G query rows (one warp per score, lanes split hd, shuffle
-// reduction), folds the K scale into the score, and updates the online
-// softmax with the V scale folded into each weight.  The walk stops at
-// `length`, so the tail past it is never read and cannot change the output
-// (a length of 0 walks the whole cache, every score masked, as the
-// reference does).
-#include "common.cuh"
+// dimension, carrying m / l / acc in scratch (block_s, a TPU tiling
+// parameter, is not used here).  The dense cache is the paged kernel's
+// layout with one page of S positions per request and no table, and one
+// length for every row, so the same split-sequence body runs it
+// (csrc/flash_decode.cuh): B * KVS pairs do not fill the card, so the
+// sequence splits over blocks (the caller's split count over S), each
+// block's 8 warps walk their positions for one query row with the
+// softmax state in registers, and the last block to arrive combines the
+// splits in order.
+// The walk stops at `length`, so the tail past it is never read and cannot
+// change the output (a length of 0 walks the whole cache, every score
+// masked, as the reference does).
+#include "flash_decode.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 32;
+namespace fd = repro::fd;
 
-__global__ void __launch_bounds__(kThreads)
-decode_attn_int8_kernel(const float* __restrict__ q, const int8_t* __restrict__ kc,
-                        const float* __restrict__ ks, const int8_t* __restrict__ vc,
-                        const float* __restrict__ vs, const int* __restrict__ length_p,
-                        float* __restrict__ out, int S, int KVS, int G, int hd, float scale) {
-  extern __shared__ float smem[];
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  float* q_s = smem;              // [G][hd], pre-scaled
-  float* acc_s = q_s + G * hd;    // [G][hd]
-  float* k_s = acc_s + G * hd;    // [kTile][hd]
-  float* v_s = k_s + kTile * hd;  // [kTile][hd]
-  float* p_s = v_s + kTile * hd;  // [G][kTile] scores, then weights
-  float* vsc_s = p_s + G * kTile; // [kTile] V scales of the tile
-  float* m_s = vsc_s + kTile;     // [G] running max
-  float* l_s = m_s + G;           // [G] running sum
-  float* c_s = l_s + G;           // [G] this tile's correction
-  const int length = *length_p;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+constexpr int kWarps = 8;
+constexpr int kSteps = 4;  // positions per lane group and warp iteration
 
-  for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
-    q_s[e] = q[(((size_t)b * KVS + kvh) * G) * hd + e] * scale;
-    acc_s[e] = 0.f;
-  }
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    m_s[g] = -1e30f;
-    l_s[g] = 0.f;
-  }
-  const int n = length > 0 ? min(length, S) : S;
+// One query row a block: more would not fit the register budget of 2
+// blocks per SM at 8 warps.
+template <int LPR>
+__global__ void __launch_bounds__(kWarps * 32, fd::kMinBlocks)
+    decode_attn_int8_kernel(fd::Args a, int R) {
+  fd::flash_decode<int8_t, LPR, 1, kSteps, kWarps>(a, R);
+}
 
-  for (int base = 0; base < n; base += kTile) {
-    const int t = min(kTile, n - base);
-    __syncthreads();  // previous tile consumed; init visible on the first
-    for (int e = threadIdx.x; e < t * hd; e += blockDim.x) {
-      const int s = e / hd, d = e % hd;
-      const size_t src = (((size_t)b * S + base + s) * KVS + kvh) * hd + d;
-      k_s[e] = static_cast<float>(kc[src]);
-      v_s[e] = static_cast<float>(vc[src]);
-    }
-    for (int s = threadIdx.x; s < t; s += blockDim.x)
-      vsc_s[s] = vs[((size_t)b * S + base + s) * KVS + kvh];
-    __syncthreads();
-    for (int e = warp; e < G * t; e += kWarps) {
-      const int g = e / t, s = e % t;
-      float dot = 0.f;
-      for (int d = lane; d < hd; d += 32) dot += q_s[g * hd + d] * k_s[s * hd + d];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) {
-        const int pos = base + s;
-        const float sc = dot * ks[((size_t)b * S + pos) * KVS + kvh];
-        p_s[g * kTile + s] = pos < length ? sc : -1e30f;
-      }
-    }
-    __syncthreads();
-    for (int g = threadIdx.x; g < G; g += blockDim.x) {
-      float* row = p_s + g * kTile;
-      float mx = row[0];
-      for (int s = 1; s < t; ++s) mx = fmaxf(mx, row[s]);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int s = 0; s < t; ++s) {
-        const float pr = expf(row[s] - m_new);
-        sum += pr;
-        row[s] = pr * vsc_s[s];  // fold the V scale into the weight
-      }
-      const float corr = expf(m_prev - m_new);
-      l_s[g] = l_s[g] * corr + sum;
-      m_s[g] = m_new;
-      c_s[g] = corr;
-    }
-    __syncthreads();
-    for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
-      const int g = e / hd, d = e % hd;
-      const float* pr = p_s + g * kTile;
-      float pv = 0.f;
-      for (int s = 0; s < t; ++s) pv += pr[s] * v_s[s * hd + d];
-      acc_s[e] = acc_s[e] * c_s[g] + pv;
-    }
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < G * hd; e += blockDim.x) {
-    const int g = e / hd;
-    out[(((size_t)b * KVS + kvh) * G) * hd + e] = acc_s[e] / fmaxf(l_s[g], 1e-30f);
-  }
+template <int LPR>
+int run(const fd::Args& a, int B, int R, int splits, cudaStream_t st) {
+  return fd::launch<LPR, 1, kSteps, kWarps>(decode_attn_int8_kernel<LPR>, a, B, R, splits, st);
 }
 
 }  // namespace
 
-// q (B, KVS, G, hd) f32; k/v caches (B, S, KVS, hd) int8; k/v scales (B, S,
-// KVS) f32; length () int32 on the device; out (B, KVS, G, hd) f32.
-extern "C" int repro_decode_attn_int8(const float* q, const int8_t* kc, const float* ks,
+// q (B, KVS, G, hd) of dtype `q_dtype` (f32 or bf16); k/v caches (B, S,
+// KVS, hd) int8; k/v scales (B, S, KVS) f32; length () int32 on the device;
+// out (B, KVS, G, hd) f32.  `splits` caps the blocks per (b, kv head) over
+// S; above one, ws holds at least B * KVS * splits * G * (hd + 2) floats
+// and counters B * KVS * G ints, zero before the first call (each call
+// leaves them at zero).  hd: a multiple of 8 in [16, 128].
+extern "C" int repro_decode_attn_int8(const void* q, const int8_t* kc, const float* ks,
                                       const int8_t* vc, const float* vs, const int* length,
-                                      float* out, int B, int S, int KVS, int G, int hd,
+                                      float* out, float* ws, int* counters, int B, int S,
+                                      int KVS, int G, int hd, int q_dtype, int splits,
                                       void* stream) {
-  const size_t smem =
-      ((size_t)2 * G * hd + (size_t)2 * kTile * hd + (size_t)G * kTile + kTile + 3 * G) *
-      sizeof(float);
-  cudaError_t err = repro::allow_smem(decode_attn_int8_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = static_cast<float>(1.0 / sqrt(static_cast<double>(hd)));
-  dim3 grid(KVS, B);
-  decode_attn_int8_kernel<<<grid, kThreads, smem, repro::as_stream(stream)>>>(
-      q, kc, ks, vc, vs, length, out, S, KVS, G, hd, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (hd % fd::kE != 0 || hd < 16 || hd > 128 || G < 1 || S < 1 || splits < 1 ||
+      (q_dtype != repro::kF32 && q_dtype != repro::kBF16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // W = 1 (causal: position pos visible iff pos < length), page b of S
+  // positions, the one length shared by every request
+  fd::Args a{q, kc, vc, ks, vs, /*tm=*/nullptr, /*table=*/nullptr, length, out, ws, counters,
+             /*W=*/1, KVS, G, hd, /*ps=*/S, /*mp=*/1, /*len_stride=*/0,
+             q_dtype == repro::kBF16, /*split_pos=*/0, /*ps_shift=*/-1,
+             static_cast<float>(fd::kLog2e / sqrt(static_cast<double>(hd)))};
+  cudaStream_t st = repro::as_stream(stream);
+  switch (fd::lanes_per_row(hd)) {
+    case 2: return run<2>(a, B, G, splits, st);
+    case 4: return run<4>(a, B, G, splits, st);
+    case 8: return run<8>(a, B, G, splits, st);
+    default: return run<16>(a, B, G, splits, st);
+  }
 }

@@ -11,7 +11,9 @@ gives finite output; padded window queries never change earlier rows.
 
 Launches count under the body that ran: ``paged_attention`` (fp, causal),
 ``paged_attention_int8``, ``paged_attention_tree`` and
-``paged_attention_int8_tree``.
+``paged_attention_int8_tree``.  The kernel reads q in its own dtype (bf16 or
+f32; others are widened to f32 first) and writes f32.  It takes head dims
+that are multiples of 8 in [16, 128] and windows of at most 32 tokens.
 """
 from __future__ import annotations
 
@@ -22,7 +24,9 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import paged_attn_ref
 
-__all__ = ["paged_attention"]
+__all__ = ["paged_attention", "MAX_WINDOW"]
+
+MAX_WINDOW = 32  # window tokens the kernel scores: one 32-bit mask word per query row
 
 
 def paged_attention(
@@ -51,7 +55,9 @@ def paged_attention(
         return paged_attn_ref(q, k_pool, v_pool, page_table, lengths,
                               k_scale=k_scale, v_scale=v_scale, tree_mask=tree_mask)
     q5 = q if q.dim() == 5 else q[:, None]
-    q5 = q5.float().contiguous()
+    if q5.dtype not in (torch.float32, torch.bfloat16):
+        q5 = q5.float()
+    q5 = q5.contiguous()
     extra = [t for t in (k_scale, v_scale, tree_mask) if t is not None]
     dev = _lib.require_cuda("paged_attention", q5, k_pool, v_pool, page_table, lengths, *extra)
     b, w, kvs, g, hd = q5.shape
@@ -75,16 +81,24 @@ def paged_attention(
         if tree_mask.dtype != torch.float32 or tree_mask.shape != (b, w, w):
             raise ValueError(f"paged_attention: tree_mask must be float32 {(b, w, w)}, "
                              f"got {tree_mask.dtype} {tuple(tree_mask.shape)}")
-    code = _lib.dtype_code(k_pool.dtype)
-    out = torch.empty_like(q5)
+    if hd % 8 or not 16 <= hd <= 128 or w > MAX_WINDOW:
+        raise ValueError(f"paged_attention: the kernel takes hd a multiple of 8 in [16, 128] "
+                         f"and W <= {MAX_WINDOW}, got hd={hd} W={w}")
+    if any(t.data_ptr() % 16 for t in (q5, k_pool, v_pool)):
+        raise ValueError("paged_attention: q and the pools must be 16-byte aligned")
+    mp = page_table.shape[1]
+    splits = _lib.attn_splits(_lib.sm_count(dev), b * kvs, mp * ps)
+    ws, cnt = _lib.attn_scratch(dev, splits, b * kvs, w * g, hd)
+    out = torch.empty(q5.shape, dtype=torch.float32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
     err = _lib.lib().repro_paged_attn(
         q5.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), ptr(k_scale), ptr(v_scale),
-        ptr(tree_mask), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, w, kvs, g, hd, ps, page_table.shape[1], code, _lib.stream_ptr(dev),
+        ptr(tree_mask), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), ptr(ws),
+        ptr(cnt), b, w, kvs, g, hd, ps, mp, _lib.dtype_code(k_pool.dtype),
+        _lib.dtype_code(q5.dtype), splits, _lib.stream_ptr(dev),
     )
     _lib.check(err, "paged_attention")
     body = ("_int8" if quantized else "") + ("_tree" if tree_mask is not None else "")

@@ -18,6 +18,8 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple, Union
 
+from repro_torch.kernels.paged_attn import MAX_WINDOW
+
 __all__ = [
     "SamplingParams",
     "CompletionOutput",
@@ -138,6 +140,13 @@ class EngineConfig:
                 raise ValueError(
                     f"branch_threshold must be in [0, 1], got {self.branch_threshold}"
                 )
+        if self.spec_window + 1 > MAX_WINDOW:
+            # the paged-attention kernel keeps one 32-bit mask word per query row
+            raise ValueError(
+                f"the verify window (draft_len + 1, or tree_budget + 1 under spec_mode='tree') "
+                f"is {self.spec_window + 1} tokens; the paged-attention kernel scores at most "
+                f"{MAX_WINDOW}"
+            )
         if self.kv_quant not in ("none", "int8", "mixed"):
             raise ValueError(
                 f"kv_quant must be 'none', 'int8' or 'mixed', got {self.kv_quant!r}"

@@ -6,8 +6,11 @@ interpret mode at the reference tests' own tolerance, atol 2e-5 in f32
 (tests/test_paged_attn.py, tests/test_decode_attn_kernel.py use the same
 inputs' scale); ``kv_quantize`` is held bit for bit against the reference's
 ``_kv_quantize``.  On a card only (``cuda`` marker) each CUDA body is held
-against its plain version, and the int8 decode kernel must ignore a
-poisoned cache tail bit for bit.  Inputs come from seeded numpy."""
+against its plain version, a second call must give the same bits, and
+both kernels must ignore a poisoned cache tail bit for bit.  Inputs come
+from seeded numpy."""
+import importlib.util
+import pathlib
 import types
 
 import numpy as np
@@ -18,8 +21,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.speculative import tree_ancestor_mask
 from repro_torch.kernels import _lib, ref
 from repro_torch.kernels.decode_attn import decode_attention_int8
-from repro_torch.kernels.paged_attn import paged_attention
+from repro_torch.kernels.paged_attn import MAX_WINDOW, paged_attention
 from repro_torch.models.layers import kv_quantize
+from repro_torch.serving.api import EngineConfig
 from repro_torch.serving.paged_cache import kv_quantize_np
 
 ATOL = 2e-5
@@ -129,6 +133,37 @@ def test_paged_wrapper_refuses_bad_combinations():
                         v_scale=_t(vs), tree_mask=_t(tm))
 
 
+@pytest.mark.parametrize("pairs,positions,want", [
+    (256, 176, 1),  # target verify: 8 rows x 32 heads, 11 pages of 16
+    (96, 192, 1),  # draft tree: 8 rows x 12 heads, 12 pages
+    (128, 4096, 2),  # K7 / long context: 4 x 32 pairs over 4096 positions
+    (4, 4096, 16),  # few pairs: at least 256 positions a split
+])
+def test_attn_splits_from_static_shapes(pairs, positions, want):
+    """The attention kernels' split count: one block per (row, head) on the
+    engine's paths (one launch, no workspace), one wave of 2 blocks per SM
+    of a 132-SM card on long walks, never under 256 positions a split."""
+    assert _lib.attn_splits(132, pairs, positions) == want
+
+
+@pytest.mark.parametrize("cfg,window", [
+    (dict(draft_len=31), 32),
+    (dict(draft_len=32), 33),
+    (dict(spec_mode="tree", tree_budget=31, draft_len=40), 32),
+    (dict(spec_mode="tree", tree_budget=32), 33),
+])
+def test_engine_config_holds_windows_to_the_kernel(cfg, window):
+    """The paged kernel keeps one 32-bit mask word per query row, so an
+    engine whose verify window (draft_len + 1, or tree_budget + 1 for a
+    tree) is wider is refused when it is configured, not at its first
+    dispatch on the card."""
+    if window <= MAX_WINDOW:
+        assert EngineConfig(**cfg).spec_window + 1 == window
+    else:
+        with pytest.raises(ValueError, match=f"{window} tokens"):
+            EngineConfig(**cfg)
+
+
 def _decode_case(b, s, kvs, g, hd, seed=0):
     rng = np.random.RandomState(seed)
     q = rng.randn(b, kvs, g, hd).astype(np.float32)
@@ -177,25 +212,113 @@ def test_kv_quantize_bit_exact(jx, dtype):
 # ---------------------------------------------------------------------------
 
 
+# card geometries: (id, hd, g, ps, mp, lengths, q dtype); the 4th length is
+# replaced by 1 for the 4-D q.  Rows whose pages span several warps (and, at
+# 256 pages, several blocks), length 0, hd in {16, 48, 64, 128}, G in {1, 4}.
+PAGED_GEOMETRIES = [
+    ("hd128", 128, 1, 16, 6, [37, 0, 16, 9], "float32"),
+    ("hd16-g4", 16, 4, 4, 40, [150, 3, 0, 77], "float32"),
+    ("hd48-ps12", 48, 1, 12, 14, [150, 60, 1, 9], "bfloat16"),
+    ("hd64-g4", 64, 4, 16, 12, [190, 9, 100, 33], "bfloat16"),
+    ("long-256-pages", 128, 1, 16, 256, [4096, 4095, 257, 9], "bfloat16"),
+]
+CARD_BODIES = {"fp": (False, False), **BODIES}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("body,w", [(body, w) for body in BODIES for w in (0, 4, 9)
-                                    if w or not BODIES[body][1]])
-def test_cuda_paged_bodies_match_plain(cuda, body, w):
-    quantized, tree = BODIES[body]
-    name = "paged_attention_" + body
-    lengths = [37, 0, 16, 9 if w else 1]
-    args = _paged_case(40 + w, 4, w, 4, 1, 128, 16, 6, lengths, quantized, tree)
+@pytest.mark.parametrize("geometry", PAGED_GEOMETRIES, ids=lambda c: c[0])
+@pytest.mark.parametrize("body,w", [(body, w) for body in CARD_BODIES for w in (0, 4, 9)
+                                    if w or not CARD_BODIES[body][1]])
+def test_cuda_paged_bodies_match_plain(cuda, body, w, geometry):
+    """Each body against its plain version, and a second call bitwise
+    equal to the first."""
+    _, hd, g, ps, mp, lengths, q_dtype = geometry
+    quantized, tree = CARD_BODIES[body]
+    name = "paged_attention" + ("" if body == "fp" else "_" + body)
+    lengths = lengths[:3] + [lengths[3] if w else 1]
+    args = _paged_case(40 + w, 4, w, 4, g, hd, ps, mp, lengths, quantized, tree)
     q, kp, vp, table, lens, ks, vs, tm = (None if a is None else _t(a, cuda) for a in args)
+    q = q.to(getattr(torch, q_dtype))
     if not quantized:
         kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
     kw = dict(k_scale=ks, v_scale=vs, tree_mask=tm)
     before = _lib.launches[name]
     got = paged_attention(q, kp, vp, table, lens, **kw)
+    again = paged_attention(q, kp, vp, table, lens, **kw)
     torch.cuda.synchronize()
-    assert _lib.launches[name] == before + 1
+    assert _lib.launches[name] == before + 2
     assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, ref.paged_attn_ref(q, kp, vp, table, lens, **kw),
                                atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", ["bfloat16", "int8"])
+def test_cuda_paged_row_does_not_depend_on_the_window(cuda, pool):
+    """A query row's output depends on the positions it sees, not on the
+    window around it: the first row of a causal W=4 window, of a W=9 tree
+    window whose first row sees only its own slot, and a W=1 decode step,
+    all over the same positions, give the same bits.  (The engine's tree
+    rounds then equal its chain rounds wherever they score the same
+    prefix.)"""
+    rng = np.random.RandomState(80)
+    b, kvs, hd, ps, mp, lengths = 3, 2, 128, 16, 20, np.array([163, 40, 11])
+    kp = rng.randn(b * mp, ps, kvs, hd).astype(np.float32)
+    vp = rng.randn(b * mp, ps, kvs, hd).astype(np.float32)
+    kw = {}
+    if pool == "int8":
+        (kp, ks), (vp, vs) = kv_quantize_np(kp), kv_quantize_np(vp)
+        kw = dict(k_scale=_t(ks, cuda), v_scale=_t(vs, cuda))
+        kp, vp = _t(kp, cuda), _t(vp, cuda)
+    else:
+        kp, vp = _t(kp, cuda).bfloat16(), _t(vp, cuda).bfloat16()
+    table = _t(rng.permutation(b * mp).reshape(b, mp).astype(np.int32), cuda)
+    q0 = rng.randn(b, kvs, 1, hd).astype(np.float32)
+
+    def first_row(w, shift, tree_mask=None):
+        q = rng.randn(b, w, kvs, 1, hd).astype(np.float32)
+        q[:, 0] = q0
+        lens = _t((lengths + shift).astype(np.int32), cuda)
+        out = paged_attention(_t(q, cuda).bfloat16(), kp, vp, table, lens, tree_mask=tree_mask,
+                              **kw)
+        return out[:, 0]
+
+    self_only = torch.eye(9, device=cuda).expand(b, 9, 9).contiguous()
+    chain = first_row(4, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(chain, first_row(9, 5, self_only))
+    assert torch.equal(chain, first_row(1, -3))
+
+
+def _chip_smoke():
+    """The repo's chip_smoke.py as a module (for its tail-poisoning helper)."""
+    path = pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", list(CARD_BODIES))
+def test_cuda_paged_ignores_poisoned_tail(cuda, body):
+    """Slots past a row's length inside its last page never reach the
+    output: poisoned (bf16 pools 1e6; int8 K at 127, V scales at 1e6), the
+    result is bitwise unchanged.  Rows of 40, 4001 and 9 tokens (ps 16;
+    the 4001-token row splits over blocks)."""
+    quantized, tree = CARD_BODIES[body]
+    w, lengths = 4, [40, 4001, 9]
+    q, kp, vp, table, lens, ks, vs, tm = (
+        None if a is None else _t(a, cuda)
+        for a in _paged_case(70, 3, w, 2, 2, 64, 16, 256, lengths, quantized, tree))
+    if not quantized:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    base = paged_attention(q, kp, vp, table, lens, k_scale=ks, v_scale=vs, tree_mask=tm)
+    kp2, vp2, vs2 = _chip_smoke()._poison_tails(kp, vp, vs, table, lengths, w, 16)
+    poisoned = paged_attention(q, kp2, vp2, table, lens, k_scale=ks, v_scale=vs2, tree_mask=tm)
+    torch.cuda.synchronize()
+    assert torch.equal(base, poisoned)
 
 
 @pytest.mark.cuda
@@ -224,16 +347,30 @@ def test_cuda_tree_page_walk_matches_plain_for_any_mask(cuda, body):
                                atol=ATOL, rtol=1e-5)
 
 
+# and on the card: S = 4096 (16 splits of 256 positions for 4 (b, head)
+# pairs), hd 16, G up to 8
+CARD_DECODE_SHAPES = DECODE_SHAPES + [
+    (2, 4096, 2, 1, 128, 512),
+    (1, 4096, 1, 4, 64, 512),
+    (1, 256, 2, 8, 16, 256),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=lambda c: "x".join(map(str, c)))
-@pytest.mark.parametrize("length", [0, 1, 17, None])
+@pytest.mark.parametrize("shape", CARD_DECODE_SHAPES, ids=lambda c: "x".join(map(str, c)))
+@pytest.mark.parametrize("length", [0, 1, 17, 255, 256, 257, 4095, None])
 def test_cuda_decode_int8_matches_plain(cuda, shape, length):
+    """Against the plain version at lengths on either side of split and
+    block-iteration boundaries, and a second call bitwise equal."""
     b, s, kvs, g, hd, block_s = shape
     args = [_t(a, cuda) for a in _decode_case(b, s, kvs, g, hd)]
+    args[0] = args[0].to(torch.bfloat16) if g == 4 else args[0]  # q in either dtype
     ln = torch.tensor(s if length is None else min(length, s), dtype=torch.int32, device=cuda)
     got = decode_attention_int8(*args, ln, block_s=block_s)
+    again = decode_attention_int8(*args, ln, block_s=block_s)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
     torch.testing.assert_close(got, ref.decode_attn_int8_ref(*args, ln), atol=ATOL, rtol=1e-5)
 
 
