@@ -12,15 +12,20 @@ Phases, in order (any failure exits non-zero before the final line):
    shapes: one JSON line per (kernel, shape) with the error, the stated
    tolerance, the kernel's and the plain version's times, one PyTorch
    library call's time as a yardstick, and the card's bound for the work
-   (and, for the two matmuls and both attention kernels, whether a second
-   call is bitwise equal; for the attention kernels, whether values past
-   each row's length, poisoned, leave the output bitwise unchanged).
+   (and, for every kernel, whether a second call is bitwise equal; for the
+   LRU rotation, whether a row's bits are the same computed alone or among
+   others; for the attention kernels, whether values past each row's
+   length, poisoned, leave the output bitwise unchanged).  The LRU rotation
+   is timed as the plan-level R2 rotation (both stages of the target's
+   tiled d_ff plan, one launch) at 1, 32, 72 and 128 tokens, and as the
+   single stage at 32.
 3. The main path at full width: the paper pair (LLaMA2-7B widths, W4A8 +
    LRU target with all 32 layers, built layer by layer; LLaMA-68M widths,
    BVQ draft) served by ``Engine`` at ``EngineConfig()`` defaults, 4 greedy
    requests with seeded 32-128-token prompts and max_tokens=32.  Launch
    counters are zeroed just before and read just after; every kernel of
-   the path must have launched.  Speculative outputs are compared with a
+   the path must have launched, and the LRU rotation once per layer of
+   each target forward.  Speculative outputs are compared with a
    target-only greedy decode.
 4. int8 path: the same pair and requests under ``EngineConfig(kv_quant=
    "int8")``; must launch the int8 paged body.  Its tokens are compared
@@ -190,8 +195,27 @@ def check_w4a8(dev, timer, g, m, k, n):
     )
 
 
-def check_block_rotate(dev, timer, g, tokens, n, m, k):
+def _rotation_stability(fn, x):
+    """(repeat_bitwise_equal, rows_independent_of_M) of a rotation call:
+    a second call gives the same bits, and rows of the call equal the same
+    rows computed alone (first and last row) and in a 32-row prefix."""
+    y = fn(x)
+    tokens = x.shape[0]
+    alone = all(torch.equal(y[i:i + 1], fn(x[i:i + 1])) for i in {0, tokens - 1})
+    prefix = tokens <= 32 or torch.equal(y[:32], fn(x[:32]))
+    return bool(torch.equal(y, fn(x))), bool(alone and prefix)
+
+
+def _hb(m, k, dev):
+    """kron(H_m, H_2^k) / sqrt(B) in bf16: one LRU block as a dense matrix."""
     from repro_torch.core import hadamard
+
+    hb = np.kron(hadamard.hadamard_matrix(m), hadamard.hadamard_matrix(1 << k))
+    return torch.as_tensor(hb / math.sqrt(m << k), dtype=torch.bfloat16, device=dev)
+
+
+def check_block_rotate(dev, timer, g, tokens, n, m, k):
+    """The single-stage entry (block_rotate_pallas's function)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.fwht import block_rotate
 
@@ -199,17 +223,59 @@ def check_block_rotate(dev, timer, g, tokens, n, m, k):
     got = block_rotate(x, m, k).float()
     want = ref.block_rotate_ref(x, m, k).float()
     b = m << k
-    hb = np.kron(hadamard.hadamard_matrix(m), hadamard.hadamard_matrix(1 << k)) / math.sqrt(b)
-    hb = torch.as_tensor(hb, dtype=torch.bfloat16, device=dev)
+    hb = _hb(m, k, dev)
     xv = x.view(tokens, n // b, b)
-    bound, by = bound_ms(2 * 2 * tokens * n + 2 * m * m, tokens * n * (k + 2 * m + 1), "bf16")
+    repeat, rows = _rotation_stability(lambda t: block_rotate(t, m, k), x)
+    # the kernel's arithmetic is float32 (CUDA cores)
+    bound, by = bound_ms(2 * 2 * tokens * n + 2 * m * m, tokens * n * (k + 2 * m + 1), "f32")
     return dict(
         # bf16 tolerance of the reference test: the plain version rounds to
         # bf16 after every butterfly stage, the kernel once at the store
         max_abs_err=float((got - want).abs().max()), tol=5e-2,
+        repeat_bitwise_equal=repeat, rows_independent_of_M=rows,
         kernel_ms=timer.ms(lambda: block_rotate(x, m, k)),
         plain_ms=timer.ms(lambda: ref.block_rotate_ref(x, m, k)),
         library_ms=timer.ms(lambda: torch.matmul(xv, hb)),
+        bound_ms=bound, bound_by=by,
+    )
+
+
+def check_rotate_plan(dev, timer, g, tokens, n):
+    """The plan-level entry on the target's online R2 rotation (ops.lru_rotate:
+    both stages of a tiled plan in one launch).  Yardstick: the library
+    composition of the same function, two batched torch.matmul by H_B and
+    the two torch.roll, timed as one call sequence."""
+    from repro_torch.core import rotation as rot
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.fwht import rotate_plan
+
+    plan = rot.plan_rotation(n)
+    m, k, b = plan.m, plan.k, plan.block
+    x = torch.randn((tokens, n), generator=g, device=dev).to(torch.bfloat16)
+    got = rotate_plan(x, plan).float()
+    want = ref.rotate_plan_ref(x, plan).float()
+    hb = _hb(m, k, dev)
+
+    def composition():
+        y = torch.matmul(x.view(tokens, n // b, b), hb).view(tokens, n)
+        y = torch.roll(y, -(b // 2), dims=-1)
+        y = torch.matmul(y.view(tokens, n // b, b), hb).view(tokens, n)
+        return torch.roll(y, b // 2, dims=-1)
+
+    repeat, rows = _rotation_stability(lambda t: rotate_plan(t, plan), x)
+    bound, by = bound_ms(2 * 2 * tokens * n + 2 * m * m,
+                         plan.stages * tokens * n * (k + 2 * m + 1), "f32")
+    err = (got - want).abs()
+    return dict(
+        # the reference test's bf16 tolerance, |err| <= tol + rtol * |want|:
+        # the plain version rounds to bf16 after every butterfly of both
+        # stages, the kernel once at the end of each stage
+        max_abs_err=float(err.max()), tol=5e-2, rtol=5e-2,
+        within_tol=bool((err <= 5e-2 + 5e-2 * want.abs()).all()),
+        repeat_bitwise_equal=repeat, rows_independent_of_M=rows,
+        kernel_ms=timer.ms(lambda: rotate_plan(x, plan)),
+        plain_ms=timer.ms(lambda: ref.rotate_plan_ref(x, plan)),
+        library_ms=timer.ms(composition),
         bound_ms=bound, bound_by=by,
     )
 
@@ -405,7 +471,15 @@ def phase_kernels(dev, seed):
     mb, win = 8, 4  # EngineConfig(): max_batch 8, verify window draft_len + 1
     # paged attention lengths: 6 active rows, 2 inactive rows holding only
     # the window (as the engine's idle slots do)
+    # the plan-level R2 rotation first: its verify shape is block_rotate's
+    # record in the summary line
     cases = [
+        ("block_rotate", f"R2 plan tokens={t} n=11008 tiled m=4 k=6 bf16 ({what})",
+         lambda t=t: check_rotate_plan(dev, timer, g, t, 11008))
+        for t, what in ((mb * win, "verify"), (1, "one-token step"), (mb * 9, "tree verify 8x9"),
+                        (128, "prefill, 128-token prompt"))
+    ]
+    cases += [
         ("w4a8_matmul", "M=32 K=4096 N=11008 (w_gate/w_up, verify)",
          lambda: check_w4a8(dev, timer, g, mb * win, 4096, 11008)),
         ("w4a8_matmul", "M=32 K=4096 N=4096 (wq/wk/wv/wo, verify)",
@@ -420,7 +494,7 @@ def phase_kernels(dev, seed):
          lambda: check_w4a8(dev, timer, g, 1, 4096, 11008)),
         ("w4a8_matmul", "M=128 K=4096 N=11008 (prefill, 128-token prompt)",
          lambda: check_w4a8(dev, timer, g, 128, 4096, 11008)),
-        ("block_rotate", "tokens=32 n=11008 m=4 k=6 bf16 (R2, verify)",
+        ("block_rotate", "single stage tokens=32 n=11008 m=4 k=6 bf16",
          lambda: check_block_rotate(dev, timer, g, mb * win, 11008, 4, 6)),
         ("bvq_matmul", "M=8 K=768 N=3072 bf16 (w_gate/w_up, draft step)",
          lambda: check_bvq(dev, timer, g, mb, 768, 3072)),
@@ -478,10 +552,12 @@ def phase_kernels(dev, seed):
         torch.cuda.synchronize()
         emit(phase="kernel", kernel=name, shape=shape, **rec)
         summary.setdefault(name, dict(rec, shape=shape))
-        if not rec["max_abs_err"] <= rec["tol"]:
+        if not rec.get("within_tol", rec["max_abs_err"] <= rec["tol"]):
             failed.append(f"{name} [{shape}]: err {rec['max_abs_err']} > tol {rec['tol']}")
         if not rec.get("repeat_bitwise_equal", True):
             failed.append(f"{name} [{shape}]: two calls on the same inputs differ")
+        if not rec.get("rows_independent_of_M", True):
+            failed.append(f"{name} [{shape}]: a row's bits depend on the call's rows")
         if not rec.get("poisoned_tail_bitwise_equal", True):
             failed.append(f"{name} [{shape}]: a poisoned tail past length changed the output")
     if failed:
@@ -514,6 +590,15 @@ def phase_main_path(dev, seed):
     sp = SamplingParams(max_tokens=32)
     outs, launches = _drive("main_path", Engine(target, draft, EngineConfig(), device=dev),
                             prompts, sp, dev)
+    # each target forward runs 7 linears a layer and the head through w4a8
+    # and one R2 rotation a layer: one block_rotate launch each
+    forwards = launches["w4a8_matmul"] / (7 * target.cfg.n_layers + 1)
+    per_forward = launches["block_rotate"] / forwards
+    emit(phase="main_path_rotations", target_forwards=forwards,
+         block_rotate_per_target_forward=per_forward)
+    if per_forward != target.cfg.n_layers:
+        raise AssertionError(f"block_rotate: {per_forward} launches per target forward, "
+                             f"expected one per layer ({target.cfg.n_layers})")
     # the target-only decode runs the dense-cache path, whose attention
     # takes bf16 operands (the reference's _decode_attention), while the
     # paged kernel computes in f32: at bf16 the two can part at a near-tie,
@@ -657,9 +742,12 @@ def phase_profile(dev, pair, path, cfg, kinds, rounds: int = 3) -> None:
                 ms, n = port.get(sym, (0.0, 0))
                 port[sym] = (ms + dev_us(e) / 1e3 / rounds, n + e.count // rounds)
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    calls = {key: sum(e.count for e in events if e.key == key) // rounds
+             for key in ("aten::roll", "aten::cat", "cudaLaunchKernel")}
     emit(phase="profile", path=path, rounds=rounds, wall_ms_per_round=wall * 1e3 / rounds,
          device_ms_per_round=device_ms / rounds, device_busy_share=device_ms / (wall * 1e3),
          port_kernels_ms_per_round={k: list(v) for k, v in port.items()},
+         calls_per_round=calls,
          top_device_ms_per_round=[[e.key[:80], dev_us(e) / 1e3 / rounds, e.count // rounds]
                                   for e in top_dev],
          top_host_ms_per_round=[[e.key[:80], e.self_cpu_time_total / 1e3 / rounds,

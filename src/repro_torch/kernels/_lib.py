@@ -50,7 +50,7 @@ _I = ctypes.c_int
 # C signatures: every entry point returns cudaGetLastError() as int
 _SIGNATURES = {
     "repro_w4a8_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
-    "repro_block_rotate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_block_rotate": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_bvq_matmul": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _P),
     "repro_paged_attn": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -13,10 +13,12 @@ import torch
 
 from repro_torch.core.bvq import reconstruct_dense
 from repro_torch.core.quantization import unpack_int4
-from repro_torch.core.rotation import _apply_blocks
+from repro_torch.core.rotation import (RotationPlan, _apply_blocks, local_rotate,
+                                      local_rotate_transpose)
 
 __all__ = [
     "block_rotate_ref",
+    "rotate_plan_ref",
     "w4a8_matmul_ref2",
     "bvq_matmul_ref2",
     "gather_pages_ref",
@@ -28,6 +30,12 @@ __all__ = [
 def block_rotate_ref(x: torch.Tensor, m: int, k: int, transpose: bool = False) -> torch.Tensor:
     """Plain version of kernels.fwht.block_rotate."""
     return _apply_blocks(x, m, k, transpose=transpose)
+
+
+def rotate_plan_ref(x: torch.Tensor, plan: RotationPlan, transpose: bool = False) -> torch.Tensor:
+    """Plain version of kernels.fwht.rotate_plan: the LRU's stages composed
+    with rolls / concatenations, each stage rounded to x.dtype."""
+    return local_rotate_transpose(x, plan) if transpose else local_rotate(x, plan)
 
 
 def w4a8_matmul_ref2(xq, wp, sx, sw) -> torch.Tensor:

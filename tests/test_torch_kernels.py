@@ -13,9 +13,9 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import bvq as tbvq
 from repro_torch.core import quantization as tq
 from repro_torch.core import rotation as trot
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import _lib, ops, ref
 from repro_torch.kernels.bvq_matmul import bvq_matmul
-from repro_torch.kernels.fwht import block_rotate
+from repro_torch.kernels.fwht import block_rotate, rotate_plan
 from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.kernels.w4a8_matmul import prepack, w4a8_matmul
 
@@ -33,6 +33,8 @@ def jx():
     import jax.numpy as jnp
 
     from repro.core import bvq
+    from repro.core import rotation as jrot
+    from repro.kernels import ops as jops
     from repro.kernels.bvq_matmul import bvq_matmul_pallas
     from repro.kernels.fwht import block_rotate_pallas
     from repro.kernels.paged_attn import paged_decode_attention_pallas
@@ -41,7 +43,7 @@ def jx():
     return types.SimpleNamespace(
         jnp=jnp, bvq=bvq, bvq_matmul=bvq_matmul_pallas,
         block_rotate=block_rotate_pallas, paged=paged_decode_attention_pallas,
-        w4a8=w4a8_matmul_pallas,
+        w4a8=w4a8_matmul_pallas, rot=jrot, ops=jops,
     )
 
 
@@ -178,6 +180,25 @@ def test_lru_rotate_plans_roundtrip():
                                    atol=2e-4)
 
 
+@pytest.mark.parametrize("n", [344, 896, 4864, 11008])  # two_block, exact, tiled, tiled R2
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 5e-2)])
+def test_lru_rotate_matches_jax_ops(jx, n, dtype, tol):
+    """The port's plan-level rotation (both directions) against the JAX
+    package's ops.lru_rotate / lru_rotate_transpose on the Pallas kernel
+    (interpret mode), at the reference kernel tests' tolerances."""
+    plan_j = jx.rot.plan_rotation(n)
+    plan_t = trot.plan_rotation(n)
+    assert (plan_t.m, plan_t.k, plan_t.kind) == (plan_j.m, plan_j.k, plan_j.kind)
+    x = np.random.RandomState(n).randn(6, n).astype(np.float32)
+    xj = jx.jnp.asarray(x, getattr(jx.jnp, dtype))
+    xt = _t(x).to(getattr(torch, dtype))
+    for fj, ft in ((jx.ops.lru_rotate, ops.lru_rotate),
+                   (jx.ops.lru_rotate_transpose, ops.lru_rotate_transpose)):
+        want = np.asarray(fj(xj, plan_j, use_pallas=True), np.float32)
+        got = ft(xt, plan_t).float().numpy()
+        np.testing.assert_allclose(got, want, atol=tol, rtol=tol if dtype == "bfloat16" else 0)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels vs their plain versions (on the card only)
 # ---------------------------------------------------------------------------
@@ -207,7 +228,9 @@ def test_cuda_w4a8_matches_plain(cuda, k, n):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,nb,tokens", [(4, 6, 43, 32), (12, 3, 3, 7), (28, 6, 8, 4),
-                                           (20, 6, 1, 5), (64, 6, 1, 3)])
+                                           (20, 6, 1, 5), (64, 6, 1, 3), (4, 6, 43, 1),
+                                           (4, 6, 43, 72), (4, 6, 43, 128), (12, 6, 2, 7),
+                                           (8, 6, 16, 72), (28, 5, 1, 128), (2, 6, 3, 5)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_cuda_block_rotate_matches_plain(cuda, m, k, nb, tokens, dtype):
     dt = getattr(torch, dtype)
@@ -273,3 +296,79 @@ def test_cuda_paged_attention_matches_plain(cuda, window, dtype):
     got = paged_attention(*args)
     assert bool(torch.isfinite(got).all())
     torch.testing.assert_close(got, ref.paged_attn_ref(*args), atol=2e-5, rtol=1e-5)
+
+
+# every plan kind, both mix paths (warp shuffles for bf16 m=4 / m=2, shared
+# memory for the rest), 16-lane units (m=2) and one element a thread (345)
+ROTATE_DIMS = [172, 344, 345, 768, 896, 4096, 4864, 5504, 8192, 11008, 14336]
+ROTATE_TOKENS = (1, 7, 32, 72, 128)
+
+
+def _rotate_input(tokens, n, dt, device, seed=0):
+    x = np.random.RandomState(seed).randn(tokens, n).astype(np.float32)
+    return _t(x, device).to(dt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ROTATE_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rotate_plan_matches_plain(cuda, n, dtype):
+    """The one-launch plan rotation against rot.local_rotate /
+    local_rotate_transpose, both directions, at every token count the paths
+    give."""
+    dt = getattr(torch, dtype)
+    plan = trot.plan_rotation(n)
+    tol = 2e-4 if dt == torch.float32 else 5e-2
+    for tokens in ROTATE_TOKENS:
+        x = _rotate_input(tokens, n, dt, cuda)
+        for tr, plain in ((False, trot.local_rotate), (True, trot.local_rotate_transpose)):
+            got = rotate_plan(x, plan, transpose=tr)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), plain(x, plan).float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ROTATE_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_rotate_plan_bitwise_stable(cuda, n, dtype):
+    """A second call gives the same bits, and a row's bits do not depend on
+    the call's row count or the row's index: rows of a 72-row call equal
+    the same rows at M=1 and M=32."""
+    plan = trot.plan_rotation(n)
+    x = _rotate_input(72, n, getattr(torch, dtype), cuda, seed=1)
+    for tr in (False, True):
+        y = rotate_plan(x, plan, transpose=tr)
+        assert torch.equal(y, rotate_plan(x, plan, transpose=tr))
+        assert torch.equal(y[:32], rotate_plan(x[:32], plan, transpose=tr))
+        for i in (0, 40, 71):
+            assert torch.equal(y[i:i + 1], rotate_plan(x[i:i + 1], plan, transpose=tr)), i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [344, 896, 11008])  # two_block, exact, tiled
+def test_cuda_lru_rotate_one_launch(cuda, n):
+    plan = trot.plan_rotation(n)
+    x = _rotate_input(8, n, torch.bfloat16, cuda)
+    for fn in (ops.lru_rotate, ops.lru_rotate_transpose):
+        _lib.launches.clear()
+        fn(x, plan)
+        assert dict(_lib.launches) == {"block_rotate": 1}
+
+
+def _bf16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """One bf16 unit in the last place at each value (8 significant bits)."""
+    _, e = torch.frexp(v.float())
+    return torch.ldexp(torch.ones_like(v, dtype=torch.float32), e - 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,nb,tokens", [(4, 6, 43, 32), (12, 6, 2, 7), (64, 6, 1, 3),
+                                           (28, 5, 1, 72)])
+def test_cuda_block_rotate_bf16_within_one_ulp(cuda, m, k, nb, tokens):
+    """The kernel sums in float32 and rounds once at the store, so each bf16
+    output is within one bf16 ulp of the float32 rotation rounded to bf16."""
+    x = _rotate_input(tokens, (m << k) * nb, torch.bfloat16, cuda, seed=2)
+    for tr in (False, True):
+        got = block_rotate(x, m, k, transpose=tr).float()
+        want = ref.block_rotate_ref(x.float(), m, k, transpose=tr).to(torch.bfloat16)
+        assert bool(((got - want.float()).abs() <= _bf16_ulp(want)).all())
