@@ -41,7 +41,10 @@
 // -1e30, a masked score is -1e30 and l is clamped at 1e-30.  Query row
 // (w, g) sees position pos iff rel = pos - (len - W) < 0 (the committed
 // prefix) or rel < W and bit rel of row w's window mask is set: the tree
-// mask's row, or bits 0..w for the causal window (pos <= len - W + w).  The
+// mask's row, or bits 0..w for the causal window (pos <= len - W + w).
+// A block keeps the mask of its own RT rows only, ceil(W / 32) words a row
+// in shared memory sized from W at launch, so the window has no fixed cap
+// (the dynamic shared memory bounds it near W = 80,000).  The
 // walk stops at `len`, which is exact: positions >= len are invisible to
 // every row and add exp(-1e30 - m) == 0.  When some row sees nothing at
 // all, every row walks all `mp * ps` positions, as the reference does, so
@@ -65,7 +68,6 @@ namespace repro {
 namespace fd {
 
 constexpr int kE = 8;        // head dims per lane
-constexpr int kMaxW = 32;    // window rows: one 32-bit mask word each
 constexpr int kSteps = 2;    // positions per lane group and warp iteration (paged bf16, int8)
 constexpr int kMinBlocks = 2;  // __launch_bounds__ blocks per SM
 constexpr double kLog2e = 1.4426950408889634;  // log2(e)
@@ -170,7 +172,7 @@ __device__ __forceinline__ void flash_decode(const Args& a, int R) {
 
   __shared__ float part_s[kWarps][RT][HDM];
   __shared__ float pm_s[kWarps][RT], pl_s[kWarps][RT];
-  __shared__ unsigned bits_s[kMaxW];
+  extern __shared__ unsigned bits_s[];  // [RT][nw]: this block's rows' mask words
 
   const int groups = (R + RT - 1) / RT;
   const int kvh = blockIdx.x, b = blockIdx.y / groups, z = blockIdx.z;
@@ -245,28 +247,47 @@ __device__ __forceinline__ void flash_decode(const Args& a, int R) {
     }
   }
 
-  // window mask words: bit j of row w set iff query w sees window slot j
-  if (tid < W) {
-    unsigned bits;
-    if (a.tm != nullptr) {
-      bits = 0u;
-      const float* row = a.tm + ((size_t)b * W + tid) * W;
+  // window mask words of this block's rows: bit j of word k of row r is
+  // set iff row r's window row w sees window slot 32k + j (the tree mask's
+  // row, or slots 0..w for the causal window); rows past R stay 0
+  const int nw = (W + 31) / 32;
+  for (int e = tid; e < RT * nw; e += kThreads) {
+    const int r = e / nw, j0 = e % nw * 32;
+    unsigned bits = 0u;
+    if (r0 + r < R) {
+      const int w = (r0 + r) / G;
+      if (a.tm != nullptr) {
+        const float* row = a.tm + ((size_t)b * W + w) * W + j0;
+        const int n = min(32, W - j0);
 #pragma unroll
-      for (int j = 0; j < kMaxW; ++j)  // unrolled: the loads go out together
-        if (j < W) bits |= (row[j] > 0.5f ? 1u : 0u) << j;
-    } else {
-      bits = (2u << tid) - 1u;  // causal: slots 0..w (tid 31: all 32 bits)
+        for (int j = 0; j < 32; ++j)  // unrolled: the loads go out together
+          if (j < n) bits |= (row[j] > 0.5f ? 1u : 0u) << j;
+      } else {
+        const int d = w - j0;  // causal: slots j0..w of this word
+        bits = d < 0 ? 0u : d >= 31 ? 0xffffffffu : (2u << d) - 1u;
+      }
     }
-    bits_s[tid] = bits;
+    bits_s[e] = bits;
   }
-  __syncthreads();
   // a non-empty prefix is seen by every row; else row w sees something iff
-  // its mask marks a window slot holding a position in [0, len)
+  // its mask marks a window slot holding a position in [0, len): a
+  // block-wide AND over all W window rows (not only this block's)
   bool every_row_sees = len > W;
-  if (!every_row_sees && len > 0) {
-    every_row_sees = true;
+  if (!every_row_sees && len > 0) {  // uniform per block
     const int lo = W - len;  // first window slot at a position >= 0
-    for (int w = 0; w < W; ++w) every_row_sees = every_row_sees && (bits_s[w] >> lo) != 0u;
+    bool mine = true;
+    for (int w = tid; w < W; w += kThreads) {
+      bool sees = w >= lo;  // causal: row w sees slots 0..w
+      if (a.tm != nullptr) {
+        const float* row = a.tm + ((size_t)b * W + w) * W;
+        sees = false;
+        for (int j = lo; j < W && !sees; ++j) sees = row[j] > 0.5f;
+      }
+      mine = mine && sees;
+    }
+    every_row_sees = __syncthreads_and(mine) != 0;
+  } else {
+    __syncthreads();  // the mask words are written
   }
   if (!every_row_sees) {  // some row sees nothing: walk every page
     n_pos = n_all;
@@ -278,12 +299,10 @@ __device__ __forceinline__ void flash_decode(const Args& a, int R) {
   const int win0 = len - W;  // position of window slot 0
 
   float m[RT], l[RT], acc[RT][kE];
-  unsigned rbits[RT];
 #pragma unroll
   for (int r = 0; r < RT; ++r) {
     m[r] = -1e30f;
     l[r] = 0.f;
-    rbits[r] = r0 + r < R ? bits_s[(r0 + r) / G] : 0u;
 #pragma unroll
     for (int e = 0; e < kE; ++e) acc[r][e] = 0.f;
   }
@@ -311,7 +330,8 @@ __device__ __forceinline__ void flash_decode(const Args& a, int R) {
         for (int off = LPR / 2; off > 0; off >>= 1)
           dot += __shfl_xor_sync(0xffffffffu, dot, off);
         if (kScaled) dot = __fmul_rn(dot, cur.ks[u]);
-        const bool visible = rel < 0 || (rel < W && ((rbits[r] >> rel) & 1u));
+        const bool visible =
+            rel < 0 || (rel < W && ((bits_s[r * nw + (rel >> 5)] >> (rel & 31)) & 1u));
         if (pos < p1) s[r][u] = visible ? dot : -1e30f;
       }
     }
@@ -467,7 +487,8 @@ template <int LPR, int kU, int NW> inline int split_positions(int n_all, int spl
 
 // Launch `kernel` (a __global__ wrapper of flash_decode<.., LPR, RT, kU,
 // NW>) over (KVS, B * row groups, splits), the splits cut at whole block
-// iterations.  Returns cudaGetLastError().
+// iterations, with ceil(W / 32) mask words per block row in dynamic shared
+// memory.  Returns cudaGetLastError().
 template <int LPR, int RT, int kU, int NW, typename Kernel>
 int launch(Kernel kernel, Args a, int B, int R, int splits, cudaStream_t st) {
   const int n_all = a.mp * a.ps;
@@ -476,7 +497,8 @@ int launch(Kernel kernel, Args a, int B, int R, int splits, cudaStream_t st) {
   if (nz > 1 && (a.ws == nullptr || a.counters == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(a.KVS, B * ((R + RT - 1) / RT), nz);
-  kernel<<<grid, NW * 32, 0, st>>>(a, R);
+  const size_t bits_bytes = sizeof(unsigned) * RT * ((a.W + 31) / 32);
+  kernel<<<grid, NW * 32, bits_bytes, st>>>(a, R);
   return static_cast<int>(cudaGetLastError());
 }
 

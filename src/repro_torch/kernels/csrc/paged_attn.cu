@@ -6,8 +6,9 @@
 // (int8 pools with per-(slot, head) scales), _kernel_tree (the window's
 // ancestor mask) and _kernel_quant_tree (both).  One template covers them:
 // the pool type (f32, bf16, int8: int8 pools take scales) and the window
-// mask, a W-bit word per query row (the tree mask's row, or bits 0..w for
-// the causal window), so the causal and the tree bodies are one code path.
+// mask, W bits per query row in ceil(W / 32) words (the tree mask's row, or
+// bits 0..w for the causal window), so the causal and the tree bodies are
+// one code path.
 //
 // Bound on this card: a call reads each valid K/V page of each (request,
 // kv-head) once (int8 pools: one byte per value plus a 4-byte scale per slot
@@ -24,9 +25,10 @@
 // are read per position from the table.  The main path's rows (<= 12
 // pages) take one split, so a call is one launch with no workspace
 // traffic; long rows split over blocks and the last block to arrive
-// combines them (still one launch).  The W x W tree
-// mask is read once per block into one word per row; a row's validity is
-// indexed, not built from one-hot products as on the TPU.
+// combines them (still one launch).  The block's rows of
+// the W x W tree mask are read once into shared memory, ceil(W / 32) words
+// a row; a row's validity is indexed, not built from one-hot products as
+// on the TPU.
 //
 // The contract of the reference is kept (flash_decode.cuh lists it): the
 // length mask decides validity, and a block walks only the positions below
@@ -89,7 +91,7 @@ int by_lanes(const fd::Args& a, int B, int R, int splits, cudaStream_t st) {
 // head) over the longest walk (mp * ps positions); above one, ws holds at
 // least B * KVS * splits * W * G * (hd + 2) floats and counters B * KVS *
 // W * G ints, zero before the first call (each call leaves them at zero).
-// hd: a multiple of 8 in [16, 128]; W <= 32.
+// hd: a multiple of 8 in [16, 128]; any W >= 1.
 extern "C" int repro_paged_attn(const void* q, const void* kp, const void* vp,
                                 const float* ks, const float* vs, const float* tm,
                                 const int* table, const int* lengths, float* out, float* ws,
@@ -97,7 +99,7 @@ extern "C" int repro_paged_attn(const void* q, const void* kp, const void* vp,
                                 int mp, int dtype, int q_dtype, int splits, void* stream) {
   const bool scaled = ks != nullptr;
   if (scaled != (vs != nullptr) || scaled != (dtype == repro::kI8) || hd % fd::kE != 0 ||
-      hd < 16 || hd > 128 || W < 1 || W > fd::kMaxW || G < 1 || ps < 1 || mp < 1 ||
+      hd < 16 || hd > 128 || W < 1 || G < 1 || ps < 1 || mp < 1 ||
       splits < 1 || (q_dtype != repro::kF32 && q_dtype != repro::kBF16))
     return static_cast<int>(cudaErrorInvalidValue);
   fd::Args a{q, kp, vp, ks, vs, tm, table, lengths, out, ws, counters,

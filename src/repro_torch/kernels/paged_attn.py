@@ -13,7 +13,8 @@ Launches count under the body that ran: ``paged_attention`` (fp, causal),
 ``paged_attention_int8``, ``paged_attention_tree`` and
 ``paged_attention_int8_tree``.  The kernel reads q in its own dtype (bf16 or
 f32; others are widened to f32 first) and writes f32.  It takes head dims
-that are multiples of 8 in [16, 128] and windows of at most 32 tokens.
+that are multiples of 8 in [16, 128] and windows of any width (each block
+keeps its rows' window masks, ceil(W / 32) words a row, in shared memory).
 """
 from __future__ import annotations
 
@@ -24,9 +25,7 @@ import torch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import paged_attn_ref
 
-__all__ = ["paged_attention", "MAX_WINDOW"]
-
-MAX_WINDOW = 32  # window tokens the kernel scores: one 32-bit mask word per query row
+__all__ = ["paged_attention"]
 
 
 def paged_attention(
@@ -81,9 +80,9 @@ def paged_attention(
         if tree_mask.dtype != torch.float32 or tree_mask.shape != (b, w, w):
             raise ValueError(f"paged_attention: tree_mask must be float32 {(b, w, w)}, "
                              f"got {tree_mask.dtype} {tuple(tree_mask.shape)}")
-    if hd % 8 or not 16 <= hd <= 128 or w > MAX_WINDOW:
-        raise ValueError(f"paged_attention: the kernel takes hd a multiple of 8 in [16, 128] "
-                         f"and W <= {MAX_WINDOW}, got hd={hd} W={w}")
+    if hd % 8 or not 16 <= hd <= 128:
+        raise ValueError(f"paged_attention: the kernel takes hd a multiple of 8 in [16, 128], "
+                         f"got hd={hd}")
     if any(t.data_ptr() % 16 for t in (q5, k_pool, v_pool)):
         raise ValueError("paged_attention: q and the pools must be 16-byte aligned")
     mp = page_table.shape[1]

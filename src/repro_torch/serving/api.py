@@ -1,10 +1,11 @@
 """Public serving API types of the stepwise ``Engine`` (torch counterpart of
 repro/serving/api.py).
 
-* ``SamplingParams`` — frozen per-request decode knobs.  The port serves
-  greedy requests (``temperature == 0``); ``Engine.add_request`` refuses
-  sampled requests and stop strings until the reference's key streams are
-  reproduced.
+* ``SamplingParams`` — frozen per-request decode knobs.  ``temperature >
+  0`` selects lossless speculative rejection sampling from a per-request
+  key stream seeded by ``seed``; ``stop`` holds stop strings matched
+  against the detokenized output (``default_detokenize`` unless the engine
+  is given its own).
 * ``RequestOutput`` / ``CompletionOutput`` — the streaming result type.
 * ``EngineConfig`` — engine-wide knobs.  The paged-attention path is not a
   knob here: the device decides (kernel on the card, plain version on the
@@ -18,19 +19,30 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Optional, Tuple, Union
 
-from repro_torch.kernels.paged_attn import MAX_WINDOW
-
 __all__ = [
     "SamplingParams",
     "CompletionOutput",
     "RequestOutput",
     "EngineConfig",
+    "default_detokenize",
 ]
+
+
+def default_detokenize(token_id: int) -> str:
+    """The toy LMs decode over an untextured integer vocab, so the default
+    detokenizer renders a token as its decimal id plus a space (``[5, 17]
+    -> "5 17 "``).  Stop-string matching runs on this stream; pass a real
+    detokenizer to ``Engine`` when serving a real vocabulary."""
+    return f"{token_id} "
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    """Per-request decode parameters.  ``temperature == 0`` is greedy."""
+    """Per-request decode parameters.  ``temperature == 0`` is greedy;
+    ``temperature > 0`` samples (after ``top_k`` and ``top_p`` filtering)
+    from the key stream of ``seed``.  Generation ends with
+    ``finish_reason="stop"`` at the first match of a ``stop`` string, and
+    the output excludes the tokens whose text overlaps the match."""
 
     temperature: float = 0.0
     top_k: int = 0
@@ -73,7 +85,7 @@ class CompletionOutput:
 
     index: int
     token_ids: List[int]
-    finish_reason: Optional[str] = None  # None | "length" | "abort"
+    finish_reason: Optional[str] = None  # None | "length" | "stop" | "abort"
 
     @property
     def finished(self) -> bool:
@@ -140,13 +152,6 @@ class EngineConfig:
                 raise ValueError(
                     f"branch_threshold must be in [0, 1], got {self.branch_threshold}"
                 )
-        if self.spec_window + 1 > MAX_WINDOW:
-            # the paged-attention kernel keeps one 32-bit mask word per query row
-            raise ValueError(
-                f"the verify window (draft_len + 1, or tree_budget + 1 under spec_mode='tree') "
-                f"is {self.spec_window + 1} tokens; the paged-attention kernel scores at most "
-                f"{MAX_WINDOW}"
-            )
         if self.kv_quant not in ("none", "int8", "mixed"):
             raise ValueError(
                 f"kv_quant must be 'none', 'int8' or 'mixed', got {self.kv_quant!r}"

@@ -1,19 +1,28 @@
 """Serving engine: the stepwise continuous-batching speculative-decoding
-runtime (torch counterpart of repro/serving/engine.py, greedy two-phase
-rounds, chain or tree).
+runtime (torch counterpart of repro/serving/engine.py, two-phase rounds,
+chain or tree, greedy or sampled).
 
 ``Engine`` admits requests at any time (``add_request``); each ``step()``
 admits what fits, prefills it into both paged pools, and runs one
 two-phase round over every active request.  A chain round: the draft model
 proposes ``draft_len`` tokens per row in lockstep micro-steps (plus one
 straggler step), then ONE batched target pass verifies every row's window,
-and the host applies the greedy accept rule and commits per row.  A tree
-round (``spec_mode="tree"``): each draft dispatch grows every row's tree by
-one level over a fixed window of ``tree_budget + 1`` slots, one
-ancestor-masked target pass verifies the trees, the greedy multi-branch
-accept rule commits a root path per row, and the KV of an accepted
-non-leftmost path is copied into chain order.  ``abort`` frees a request's
-pages at once.
+and the host applies the accept rule and commits per row.  A tree round
+(``spec_mode="tree"``): each draft dispatch grows every row's tree by one
+level over a fixed window of ``tree_budget + 1`` slots, one ancestor-masked
+target pass verifies the trees, the multi-branch accept rule commits a root
+path per row, and the KV of an accepted non-leftmost path is copied into
+chain order.  ``abort`` frees a request's pages at once.
+
+Sampled requests (``temperature > 0``) follow the reference: the draft
+proposals of a chain round in which any row samples hop through the host,
+where each sampled row draws from its own filtered distribution with its
+own key stream (greedy rows take the argmax of the same host row, so their
+tokens are those of an all-greedy batch), and the host applies the lossless
+rejection rule (chain) or the multi-branch tree rule with the draft rows
+kept per branch point.  All-greedy chain batches keep the next-token argmax
+on the device.  Stop strings are matched at commit (serving/request.py); a
+stopped request retires in the same round.
 
 KV storage (``kv_quant``): "none" keeps the model dtype, "int8" stores
 int8 pages with one f32 scale per (slot, kv head), "mixed" allocates both
@@ -35,23 +44,26 @@ prefix and rewinds to ``committed - 1``; inactive batch rows point every
 table slot at the pool's scratch page.  Greedy tokens are per-row
 deterministic, so batch composition never changes a request's output.
 
-Not ported yet (refused with NotImplementedError): sampled requests, stop
-strings, fused WDOS rounds, the prefix cache, adaptive draft lengths,
-device-time profiling, the tracer and the flight recorder.
+Not ported yet (refused with NotImplementedError): fused WDOS rounds, the
+prefix cache, adaptive draft lengths, device-time profiling, the tracer and
+the flight recorder.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core.speculative import (
     LMInterface,
+    sample_token_host,
     speculative_accept_greedy_host,
+    speculative_sample_host,
     speculative_tree_accept_greedy_host,
+    speculative_tree_sample_host,
     topk_tokens_host,
     tree_ancestor_mask,
     tree_depths,
@@ -65,6 +77,7 @@ from repro_torch.serving.api import (
     EngineConfig,
     RequestOutput,
     SamplingParams,
+    default_detokenize,
 )
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.observability import MetricsRegistry
@@ -103,7 +116,9 @@ class ServingModel:
 
 
 def make_interface(model: ServingModel) -> LMInterface:
-    """Dense-cache prefill / extend over one model."""
+    """Dense-cache prefill / extend / rewind over one model.  Rewinding
+    moves the cache's length back; the rows past it are overwritten by the
+    next extend and masked until then."""
 
     def prefill(params, tokens):
         cache = lm.init_cache(model.cfg, tokens.shape[0], model.s_max, model.device)
@@ -112,7 +127,14 @@ def make_interface(model: ServingModel) -> LMInterface:
     def extend(params, tokens, cache):
         return model._apply(params, tokens, cache)
 
-    return LMInterface(prefill=prefill, extend=extend)
+    def rewind(cache, n):
+        if n < 0:
+            raise ValueError(f"rewind expects n >= 0, got {n}")
+        if cache["length"] - n < 0:
+            raise ValueError(f"over-rewind: cache length {cache['length']} < rewind {n}")
+        return dict(cache, length=cache["length"] - n)
+
+    return LMInterface(prefill=prefill, extend=extend, rewind=rewind)
 
 
 def _wdos_costs(mcfg: ModelConfig) -> Tuple[float, float]:
@@ -197,18 +219,22 @@ def _compact_slots(store: Dict[str, torch.Tensor], src: torch.Tensor,
 
 
 def _sample_tree_level(req: Request, cfg: EngineConfig, logits: np.ndarray) -> None:
-    """Grow one greedy request's draft tree by ONE level from its window
-    logits (W, V): row 0 is the distribution after the committed tip, row
-    1+i after drafted node i.  Each frontier node (the deepest grown level)
-    fans out to ``spec_branches`` top-k children when the draft's top-1
+    """Grow one request's draft tree by ONE level from its window logits
+    (W, V): row 0 is the distribution after the committed tip, row 1+i
+    after drafted node i.  Each frontier node (the deepest grown level)
+    fans out to ``spec_branches`` children when the draft's top-1
     probability is below ``branch_threshold`` and the node budget covers
-    the fan-out, else one child (child 0 is the argmax, so the chain is
-    always a subtree).  When the budget runs out before any child lands,
-    ``tree_depth`` jumps to ``tree_dl`` so the tree reads as full."""
+    the fan-out, else one child.  Greedy requests take the top-k tokens
+    (child 0 is the argmax, so the chain is always a subtree); sampled
+    requests draw i.i.d. children from their draft key stream indexed by
+    ``tree_draws`` and keep the row in ``tree_q`` for the accept rule.
+    When the budget runs out before any child lands, ``tree_depth`` jumps
+    to ``tree_dl`` so the tree reads as full."""
     parents = req.tree_parents
     depths = tree_depths(parents, len(parents) + 1)
     d = req.tree_depth
     frontier = [0] if d == 0 else [1 + i for i in range(len(parents)) if depths[1 + i] == d]
+    sp = req.sampling
     grew = False
     for slot in frontier:
         budget = cfg.tree_budget - len(req.tree_nodes)
@@ -219,7 +245,14 @@ def _sample_tree_level(req: Request, cfg: EngineConfig, logits: np.ndarray) -> N
         # reference computes it, so branching decisions agree at a crossing
         conf = 1.0 / float(np.exp(row.astype(np.float64) - float(row.max())).sum())
         k = cfg.spec_branches if conf < cfg.branch_threshold and budget >= cfg.spec_branches else 1
-        for t in topk_tokens_host(row, k):
+        if sp.greedy:
+            toks = topk_tokens_host(row, k)
+        else:
+            toks = [sample_token_host(req.draft_key(req.tree_draws + i), row, sp.temperature,
+                                      sp.top_k, sp.top_p) for i in range(k)]
+            req.tree_draws += k
+            req.tree_q[slot] = row.copy()
+        for t in toks:
             req.tree_parents.append(slot - 1)
             req.tree_nodes.append(int(t))
         grew = True
@@ -287,6 +320,9 @@ class Engine:
             for out in eng.step():      # one batched SD round
                 stream(out.new_token_ids)
         tokens = eng.output_tokens(rid)
+
+    ``detokenize`` renders a token as text for stop-string matching
+    (default: ``api.default_detokenize``).
     """
 
     def __init__(
@@ -295,6 +331,7 @@ class Engine:
         draft: ServingModel,
         config: Optional[EngineConfig] = None,
         device="cuda",
+        detokenize: Optional[Callable[[int], str]] = None,
     ):
         cfg = config if config is not None else EngineConfig()
         unported = cfg.unported()
@@ -350,7 +387,12 @@ class Engine:
             "tree_compactions_total",
             "Compaction calls moving an accepted non-leftmost path's KV into chain order",
         )
-        for fam in (self._m_tree_nodes, self._m_tree_branches, self._m_tree_compactions):
+        self._m_host_copies = m.counter(
+            "host_copies_total",
+            "Device-to-host copies of logits or draft tokens in rounds (each waits for the device)",
+        )
+        for fam in (self._m_tree_nodes, self._m_tree_branches, self._m_tree_compactions,
+                    self._m_host_copies):
             fam.inc(0)
 
         self._batcher = ContinuousBatcher(
@@ -367,6 +409,7 @@ class Engine:
         self._d_tables = _TableSet(cfg.max_batch, self._d_pool, self.max_model_len, self.device)
         self._requests: Dict[int, Request] = {}
         self._next_id = 0
+        self._detokenize = detokenize if detokenize is not None else default_detokenize
 
     # -- request lifecycle ---------------------------------------------------
 
@@ -374,22 +417,19 @@ class Engine:
         self,
         prompt,
         sampling_params: Optional[SamplingParams] = None,
+        sink: Optional[Callable[[int], None]] = None,
     ) -> int:
         """Submit a prompt; returns its request id.  The batcher prefills it
-        on the next ``step()`` once a slot and pages are free."""
+        on the next ``step()`` once a slot and pages are free.  ``sink``
+        receives each token as it becomes deliverable."""
         sp = sampling_params if sampling_params is not None else SamplingParams()
-        if not sp.greedy:
-            raise NotImplementedError(
-                "sampled requests (temperature > 0) need the reference's key streams; "
-                "the port serves greedy requests"
-            )
-        if sp.stop:
-            raise NotImplementedError("stop strings are not ported yet")
         req = Request(
             rid=self._next_id,
             prompt=np.asarray(prompt).reshape(-1),
             max_new_tokens=sp.max_tokens,
+            sink=sink,
             sampling=sp,
+            detokenize=self._detokenize,
             # ValueError when the request pins a kind this engine did not allocate
             kv_kind=self.cfg.resolve_kv_quant(sp.kv_quant),
         )
@@ -513,6 +553,11 @@ class Engine:
                 for k in self._kinds}
         return torch.where(kvq[:, None, None], outs["int8"], outs["none"])
 
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """A round's device-to-host copy, counted in ``host_copies_total``."""
+        self._m_host_copies.inc()
+        return t.cpu().numpy()
+
     def _load_tables(self, active):
         t0 = time.perf_counter()
         d_table, d_len0 = self._d_tables.load((s, r.d_seq) for s, r in active)
@@ -548,27 +593,47 @@ class Engine:
         cfg = self.cfg
         dls = {slot: req.controller.draft_len() for slot, req in active}
         round_dl = max(dls.values())
+        any_sampled = any(not req.sampling.greedy for _, req in active)
         kvq = self._kvq_mask(active)
         d_table, d_len0, t_table, t_len0 = self._load_tables(active)
 
         # ---- draft phase: round_dl proposal steps + 1 straggler step, all
-        # batched; the next-token argmax stays on the device
+        # batched.  An all-greedy batch keeps the next-token argmax on the
+        # device; once any row samples, each proposal hops through the host,
+        # where sampled rows draw from their own keys and greedy rows take
+        # the argmax of the same f32 row (the first-max rule of both).
         cur = np.zeros((cfg.max_batch,), np.int32)
         for slot, req in active:
             cur[slot] = req.last_tok
         cur_dev = torch.as_tensor(cur, device=self.device)
-        draft_cols: List[torch.Tensor] = []
+        draft_cols: List[Any] = []
+        q_cols: List[np.ndarray] = []  # per-position draft logits (sampled rounds)
         for j in range(round_dl + 1):
             logits = self._dispatch(
                 self._d_step, self.draft.params, cur_dev[:, None], self._d_stores,
                 d_table, d_len0 + j, kvq,
             )
             if j < round_dl:
-                cur_dev = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
-                draft_cols.append(cur_dev)
+                if any_sampled:
+                    last = self._to_host(logits[:, -1, :].float())
+                    q_cols.append(last)
+                    nxt = np.argmax(last, axis=-1).astype(np.int32)
+                    for slot, req in active:
+                        sp = req.sampling
+                        if not sp.greedy:
+                            nxt[slot] = sample_token_host(req.draft_key(j), last[slot],
+                                                          sp.temperature, sp.top_k, sp.top_p)
+                    draft_cols.append(nxt)
+                    cur_dev = torch.as_tensor(nxt, device=self.device)
+                else:
+                    cur_dev = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+                    draft_cols.append(cur_dev)
             # else: straggler — feeds d_{round_dl-1}, completing the cache for
             # fully-accepted rows; over-written rows rewind it away below.
-        drafts = torch.stack(draft_cols, dim=1).cpu().numpy()
+        if any_sampled:
+            drafts = np.stack(draft_cols, axis=1)
+        else:
+            drafts = self._to_host(torch.stack(draft_cols, dim=1))
 
         # ---- verify phase: one batched pass scoring [last_tok, drafts...]
         window = np.zeros((cfg.max_batch, round_dl + 1), np.int32)
@@ -578,14 +643,23 @@ class Engine:
             self._t_step, self.target.params, torch.as_tensor(window, device=self.device),
             self._t_stores, t_table, t_len0, kvq,
         )
-        p_logits = v_logits.float().cpu().numpy()  # (B, round_dl+1, V)
+        p_logits = self._to_host(v_logits.float())  # (B, round_dl+1, V)
 
         # ---- per-request accept / commit: a pure length update per row
         work = []
         for slot, req in active:
             dl = dls[slot]
-            new, n_acc = speculative_accept_greedy_host(drafts[slot], p_logits[slot], dl)
+            sp = req.sampling
+            if sp.greedy:
+                new, n_acc = speculative_accept_greedy_host(drafts[slot], p_logits[slot], dl)
+            else:
+                q_logits = np.stack([q_cols[j][slot] for j in range(dl)])
+                new, n_acc = speculative_sample_host(
+                    req.accept_key(), drafts[slot], p_logits[slot], q_logits, dl,
+                    sp.temperature, sp.top_k, sp.top_p,
+                )
             req.commit(new)
+            req.rounds += 1
             req.drafted += dl
             req.accepted += n_acc
             req.controller.observe(n_acc, dl)
@@ -605,8 +679,8 @@ class Engine:
         length, so each level's frontier attends its ancestors through the
         tree mask), plus one straggler dispatch that lands the leaf KV; then
         verify every tree in ONE tree-masked target dispatch, walk the
-        greedy multi-branch accept rule per row, and compact accepted
-        non-leftmost paths into chain order."""
+        multi-branch accept rule per row, and compact accepted non-leftmost
+        paths into chain order."""
         cfg = self.cfg
         w, b = self._tree_width, cfg.max_batch
         dls = {slot: min(req.controller.draft_len(), cfg.tree_budget) for slot, req in active}
@@ -631,14 +705,14 @@ class Engine:
             logits = self._dispatch(self._d_step, self.draft.params, tok, self._d_stores,
                                     d_table, d_len0, kvq, pos, tm)
             if j < round_depth:
-                l_np = logits.float().cpu().numpy()
+                l_np = self._to_host(logits.float())
                 for slot, req in active:
                     if not req.tree_full:
                         _sample_tree_level(req, cfg, l_np[slot])
         tok, pos, tm = window_inputs()
         v_logits = self._dispatch(self._t_step, self.target.params, tok, self._t_stores,
                                   t_table, t_len0, kvq, pos, tm)
-        p_logits = v_logits.float().cpu().numpy()  # (B, W, V)
+        p_logits = self._to_host(v_logits.float())  # (B, W, V)
 
         work: List[Tuple[Request, int]] = []
         moves_t = {k: ([], []) for k in self._kinds}
@@ -650,15 +724,28 @@ class Engine:
 
     def _tree_verify_commit(self, req: Request, p_win: np.ndarray, dl: int,
                             moves_t, moves_d, work) -> None:
-        """Accept / commit one verified tree row: the greedy multi-branch
-        accept rule over the window logits (W, V) commits the accepted root
-        path plus the target's next token; queue the compaction moves that
-        relocate the path's BFS slots to the chain positions; advance both
-        sequences by the window and rewind back to committed - 1."""
+        """Accept / commit one verified tree row: the multi-branch accept
+        rule over the window logits (W, V), greedy or lossless sampling (the
+        draft rows of the branch points in a zero-padded (W, V) q window),
+        commits the accepted root path plus the target's next token; queue
+        the compaction moves that relocate the path's BFS slots to the chain
+        positions; advance both sequences by the window and rewind back to
+        committed - 1."""
         w = self._tree_width
+        sp = req.sampling
         nodes, parents = req.tree_nodes, req.tree_parents
-        new, path, n_acc = speculative_tree_accept_greedy_host(nodes, parents, p_win)
+        if sp.greedy:
+            new, path, n_acc = speculative_tree_accept_greedy_host(nodes, parents, p_win)
+        else:
+            q_win = np.zeros((w, p_win.shape[-1]), np.float32)
+            for qslot, row in req.tree_q.items():
+                q_win[qslot] = row
+            new, path, n_acc = speculative_tree_sample_host(
+                req.accept_key(), nodes, parents, p_win, q_win,
+                sp.temperature, sp.top_k, sp.top_p,
+            )
         req.commit(new)
+        req.rounds += 1
         req.drafted += len(nodes)
         req.accepted += n_acc
         req.controller.observe(n_acc, dl)
@@ -748,4 +835,5 @@ class Engine:
             "compactions": self._m_tree_compactions.value(),
         }
         s["table_upload_s"] = self._m_table_upload.value()
+        s["host_copies"] = self._m_host_copies.value()
         return s

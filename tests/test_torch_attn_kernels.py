@@ -21,7 +21,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core.speculative import tree_ancestor_mask
 from repro_torch.kernels import _lib, ref
 from repro_torch.kernels.decode_attn import decode_attention_int8
-from repro_torch.kernels.paged_attn import MAX_WINDOW, paged_attention
+from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.models.layers import kv_quantize
 from repro_torch.serving.api import EngineConfig
 from repro_torch.serving.paged_cache import kv_quantize_np
@@ -153,15 +153,11 @@ def test_attn_splits_from_static_shapes(pairs, positions, want):
     (dict(spec_mode="tree", tree_budget=32), 33),
 ])
 def test_engine_config_holds_windows_to_the_kernel(cfg, window):
-    """The paged kernel keeps one 32-bit mask word per query row, so an
-    engine whose verify window (draft_len + 1, or tree_budget + 1 for a
-    tree) is wider is refused when it is configured, not at its first
-    dispatch on the card."""
-    if window <= MAX_WINDOW:
-        assert EngineConfig(**cfg).spec_window + 1 == window
-    else:
-        with pytest.raises(ValueError, match=f"{window} tokens"):
-            EngineConfig(**cfg)
+    """The paged kernel keeps ceil(W / 32) mask words per query row in
+    shared memory sized at launch, so no verify window (draft_len + 1, or
+    tree_budget + 1 for a tree) is refused: windows on either side of one
+    32-bit word are accepted, on every device."""
+    assert EngineConfig(**cfg).spec_window + 1 == window
 
 
 def _decode_case(b, s, kvs, g, hd, seed=0):
@@ -258,8 +254,9 @@ def test_cuda_paged_bodies_match_plain(cuda, body, w, geometry):
 def test_cuda_paged_row_does_not_depend_on_the_window(cuda, pool):
     """A query row's output depends on the positions it sees, not on the
     window around it: the first row of a causal W=4 window, of a W=9 tree
-    window whose first row sees only its own slot, and a W=1 decode step,
-    all over the same positions, give the same bits.  (The engine's tree
+    window whose first row sees only its own slot, a W=1 decode step, and
+    the same rows of windows wider than one 32-bit mask word (causal W=40,
+    tree W=70), all over the same positions, give the same bits.  (The engine's tree
     rounds then equal its chain rounds wherever they score the same
     prefix.)"""
     rng = np.random.RandomState(80)
@@ -284,12 +281,48 @@ def test_cuda_paged_row_does_not_depend_on_the_window(cuda, pool):
                               **kw)
         return out[:, 0]
 
-    self_only = torch.eye(9, device=cuda).expand(b, 9, 9).contiguous()
+    def self_only(w):
+        return torch.eye(w, device=cuda).expand(b, w, w).contiguous()
+
     chain = first_row(4, 0)
     torch.cuda.synchronize()
-    assert torch.equal(chain, first_row(9, 5, self_only))
+    assert torch.equal(chain, first_row(9, 5, self_only(9)))
     assert torch.equal(chain, first_row(1, -3))
+    # windows of several mask words a row: the row still keeps its bits
+    assert torch.equal(chain, first_row(40, 36))
+    assert torch.equal(chain, first_row(70, 66, self_only(70)))
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w", [33, 64, 129])
+@pytest.mark.parametrize("body", list(CARD_BODIES))
+def test_cuda_paged_wide_windows_match_plain(cuda, body, w):
+    """Windows wider than one 32-bit mask word (2, 2 and 5 words a row) at
+    the target's head dim: each body against its plain version, and a
+    second call bitwise equal.  Rows longer than the window, exactly the
+    window, and shorter (a causal row 0 that sees nothing: every page is
+    walked); G = 2 so a block's rows span window rows."""
+    quantized, tree = CARD_BODIES[body]
+    name = "paged_attention" + ("" if body == "fp" else "_" + body)
+    lengths = [w + 150, w, w + 1, w // 2]
+    ps = 16
+    mp = -(-lengths[0] // ps) + 1
+    args = _paged_case(90 + w, 4, w, 2, 2, 128, ps, mp, lengths, quantized, tree)
+    q, kp, vp, table, lens, ks, vs, tm = (None if a is None else _t(a, cuda) for a in args)
+    q = q.to(torch.bfloat16)
+    if not quantized:
+        kp, vp = kp.to(torch.bfloat16), vp.to(torch.bfloat16)
+    kw = dict(k_scale=ks, v_scale=vs, tree_mask=tm)
+    before = _lib.launches[name]
+    got = paged_attention(q, kp, vp, table, lens, **kw)
+    again = paged_attention(q, kp, vp, table, lens, **kw)
+    torch.cuda.synchronize()
+    assert _lib.launches[name] == before + 2
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, ref.paged_attn_ref(q, kp, vp, table, lens, **kw),
+                               atol=ATOL, rtol=1e-5)
 
 def _chip_smoke():
     """The repo's chip_smoke.py as a module (for its tail-poisoning helper)."""

@@ -2,7 +2,8 @@
 (W4A8 target, BVQ draft), weights carried across: greedy tokens must match
 token for token at batch 1 and with 4 requests at max_batch=4.  Also page
 return on abort and the refusals of what the port does not carry yet.
-int8 KV and tree speculation are held in tests/test_torch_tree_int8.py."""
+int8 KV and tree speculation are held in tests/test_torch_tree_int8.py,
+sampled requests and stop strings in tests/test_torch_sampled_engine.py."""
 import numpy as np
 import pytest
 
@@ -92,15 +93,10 @@ def test_abort_returns_pages(pairs):
 
 
 def test_unported_settings_raise(pairs):
+    """The EngineConfig features the port does not carry yet are refused at
+    construction (sampled requests and stop strings are served: see
+    tests/test_torch_sampled_engine.py)."""
     _, (tt, td) = pairs
-    eng = Engine(tt, td, EngineConfig(max_batch=1), device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.add_request(_prompts(1, 3)[0], SamplingParams(temperature=0.7))
-    with pytest.raises(NotImplementedError):
-        eng.add_request(_prompts(1, 3)[0], SamplingParams(stop=("7",)))
-    tree = Engine(tt, td, EngineConfig(max_batch=1, spec_mode="tree"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tree.add_request(_prompts(1, 3)[0], SamplingParams(temperature=0.7))
     for cfg in (EngineConfig(par_mode="wdos"), EngineConfig(spec_mode="tree", par_mode="wdos"),
                 EngineConfig(prefix_cache=True), EngineConfig(adaptive=True),
                 EngineConfig(profile_every_n=2)):
