@@ -21,7 +21,14 @@ Phases, in order (any failure exits non-zero before the final line):
    (both stages of the target's tiled d_ff plan, one launch) at 1, 32, 72
    and 128 tokens, and as the single stage at 32.  Paged attention also
    runs windows wider than one 32-bit mask word (W = 33, 64, 129) at the
-   target's shape, causal and tree, bf16 and int8.
+   target's shape, causal and tree, bf16 and int8.  The adaptive and WDOS
+   paths' shapes run too: the R2 plan and w4a8 (four weight shapes, the
+   head included) at M = 24 (a short_dl = 2 verify) and M = 56 (a WDOS
+   verify at max_dl + 1 = 7), and paged attention at W = 3 and 7 (bf16,
+   int8), the draft step and the tree verify with half the rows laid out
+   as a fused slot's role mask leaves them (table all scratch, length the
+   window): the other rows' bits must not change when the scratch page is
+   poisoned.
 3. The main path at full width: the paper pair (LLaMA2-7B widths, W4A8 +
    LRU target with all 32 layers, built layer by layer; LLaMA-68M widths,
    BVQ draft) served by ``Engine`` at ``EngineConfig()`` defaults, 4 greedy
@@ -49,19 +56,41 @@ Phases, in order (any failure exits non-zero before the final line):
 8. Stop path: the main path's first request with a stop string made of
    two of its output tokens: the output is the main-path prefix before the
    match, finishes "stop", reaches the sink whole, and every page returns.
-9. Card against CPU at smoke size: one smoke pair built on the CPU from a
+9. Adaptive path: the main path's greedy requests under
+   ``EngineConfig(adaptive=True)`` (APSD short/long draft windows), one
+   request admitted per step: every main-path kernel launches, and each
+   row equals the main path's except at a near-tie.
+10. WDOS path: ``EngineConfig(adaptive=True, par_mode="wdos")`` with the
+   sampled path's requests, one admitted per step, after its two-phase
+   twin (``adaptive=True``, same requests and arrivals) in the same call:
+   every main-path kernel launches, some slot verifies one request while
+   another drafts, each row equals the twin's (near-tie rule for greedy
+   rows; for sampled rows, the first differing host decision taken from
+   logit rows within NEAR_TIE), and a replay is identical.
+11. WDOS tree path: the sampled tree path's engine with
+   ``par_mode="wdos"``, one request admitted per step: both tree bodies
+   launch, each row equals the sampled tree path's (decision rule), and a
+   replay is identical.
+12. Self-draft path: the paper target drafting for itself under
+   ``adaptive=True``, greedy, one request admitted per step, two-phase and
+   then WDOS: the controllers must reach PAR (a long_dl window in each
+   run), the rotation runs once per layer of every forward, and each row
+   equals the main path's except at a near-tie.
+13. Card against CPU at smoke size: one smoke pair built on the CPU from a
    fixed seed, copied to the card; the same requests through the port on
-   cuda (kernels) and on cpu (plain versions) with four engines (greedy
-   chain, greedy mixed-KV tree, sampled chain, sampled mixed-KV tree) must
-   give the same tokens, unless the first divergence is shown to be a
+   cuda (kernels) and on cpu (plain versions) with five engines (greedy
+   chain, greedy mixed-KV tree, sampled chain, sampled mixed-KV tree, and
+   a staggered adaptive WDOS chain with two sampled requests) must give
+   the same tokens, unless the first divergence is shown to be a
    near-tie: of the target's top-2 logits for a greedy row, or, for a
    sampled row, a host decision taken from logit rows that differ by at
    most NEAR_TIE between the devices.
 
-Each path prints its tokens/s and its device-to-host copies per round;
-``--profile`` adds a torch.profiler breakdown (device busy share, kernels,
-host time) of three rounds of the main, tree, sampled and sampled tree
-paths.
+Each path prints its tokens/s, rounds, target forwards per emitted token,
+device-to-host copies per round and, on a WDOS engine, its fused-slot
+summary; ``--profile`` adds a torch.profiler breakdown (device busy share,
+kernels, launches and copies, host time) of three rounds of the main,
+tree, sampled, sampled tree, WDOS and WDOS tree paths.
 
 The last two lines are the kernels summary (JSON) and the result line
 ``{"ok": true, "device": {...}}``.  Weights are random, made from SEED.
@@ -383,7 +412,13 @@ def _poison_tails(kp, vp, vs, table, lengths, w, ps, masks=None):
     return kp2, vp2, vs2
 
 
-def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, tree=False):
+def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, tree=False,
+                masked=()):
+    """``masked`` rows are laid out as a role mask leaves them in a fused
+    WDOS slot (``models/layers.forward_cache_ctx``): their whole table row
+    the scratch page (the pool's last) and their length the window alone;
+    the other rows' bits must not change when the scratch page is
+    poisoned."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attn import paged_attention
@@ -402,8 +437,25 @@ def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, 
         kw["tree_mask"] = torch.as_tensor(masks, device=dev)
     table = torch.randperm(n_pages - 1, generator=g, device=dev)[: b * mp]
     table = table.reshape(b, mp).to(torch.int32)
+    for i in masked:
+        assert lengths[i] == w, "a masked row's length is its window"
+        table[i] = n_pages - 1
     lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
     got = paged_attention(q, kp, vp, table, lens, **kw)
+    isolated = True
+    if masked:
+        kp3, vp3 = kp.clone(), vp.clone()
+        kp3[-1] = 127 if quantized else 1e6
+        vp3[-1] = 127 if quantized else 1e6
+        kw3 = kw
+        if quantized:
+            vs3 = vs.clone()
+            vs3[-1] = 1e6
+            kw3 = dict(kw, v_scale=vs3)
+        live = [i for i in range(b) if i not in masked]
+        isolated = bool(torch.equal(got[live], paged_attention(q, kp3, vp3, table, lens,
+                                                               **kw3)[live]))
+        del kp3, vp3
     want = ref.paged_attn_ref(q, kp, vp, table, lens, **kw)
     # row 0 of the window sees the positions a one-token step at length
     # len - W + 1 sees (tree rows: the prefix and slot 0), so its bits must
@@ -448,7 +500,7 @@ def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, 
         max_abs_err=float((got - want).abs().max()), tol=2e-5,
         repeat_bitwise_equal=bool(torch.equal(got, paged_attention(q, kp, vp, table, lens, **kw))),
         poisoned_tail_bitwise_equal=bool(torch.equal(got, poisoned)),
-        rows_independent_of_W=rows_w,
+        rows_independent_of_W=rows_w, masked_rows_isolated=isolated,
         kernel_ms=timer.ms(lambda: paged_attention(q, kp, vp, table, lens, **kw)),
         plain_ms=timer.ms(lambda: ref.paged_attn_ref(q, kp, vp, table, lens, **kw)),
         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
@@ -578,6 +630,39 @@ def phase_kernels(dev, seed):
                           lambda w_=ww, l_=wlens, m_=wmp, q_=quantized, t_=tree: check_paged(
                               dev, timer, g, mb, w_, 32, 128, 16, m_, l_, quantized=q_,
                               tree=t_)))
+    # the adaptive and WDOS paths: the verify window of a short_dl = 2
+    # two-phase round (W = 3, M = 24) and of every WDOS chain verify slot
+    # (W = max_dl + 1 = 7, M = 56); a fused slot's role mask leaves the rows
+    # on the other side on the scratch page at length W (rows 4-7 here; in
+    # a tree slot the draft re-feeds W = 9 beside masked rows)
+    for mw, what in ((3, "adaptive verify, short_dl 2"), (7, "WDOS verify, max_dl 6")):
+        m = mb * mw
+        cases += [
+            ("block_rotate", f"R2 plan tokens={m} n=11008 tiled m=4 k=6 bf16 ({what})",
+             lambda m=m: check_rotate_plan(dev, timer, g, m, 11008)),
+        ] + [
+            ("w4a8_matmul", f"M={m} K={k} N={n} ({which}, {what})",
+             lambda m=m, k=k, n=n: check_w4a8(dev, timer, g, m, k, n))
+            for k, n, which in ((4096, 11008, "w_gate/w_up"), (4096, 4096, "wq/wk/wv/wo"),
+                                (11008, 4096, "w_down"), (4096, 32000, "head"))
+        ]
+        mlens = [mw + d for d in (159, 96, 41, 125)] + [mw] * 4
+        for name, quantized in (("paged_attention", False), ("paged_attention_int8", True)):
+            cases.append((name, f"{what}, rows 4-7 role-masked B=8 W={mw} KVS=32 hd=128 ps=16 "
+                                f"{'int8' if quantized else 'bf16'}",
+                          lambda mw=mw, ml=mlens, q=quantized: check_paged(
+                              dev, timer, g, mb, mw, 32, 128, 16, 12, ml, quantized=q,
+                              masked=range(4, 8))))
+    cases.append(("paged_attention", "WDOS draft step, rows 4-7 role-masked B=8 W=1 KVS=12 "
+                                     "hd=64 ps=16 bf16",
+                   lambda: check_paged(dev, timer, g, mb, 1, 12, 64, 16, 11,
+                                       [160, 97, 42, 126, 1, 1, 1, 1], masked=range(4, 8))))
+    for name, quantized in (("paged_attention_tree", False), ("paged_attention_int8_tree", True)):
+        cases.append((name, f"WDOS tree verify, rows 4-7 role-masked B=8 W=9 KVS=32 hd=128 "
+                            f"ps=16 {'int8' if quantized else 'bf16'}",
+                      lambda q=quantized: check_paged(dev, timer, g, mb, tw, 32, 128, 16, 12,
+                                                      tlens[:4] + [tw] * 4, quantized=q,
+                                                      tree=True, masked=range(4, 8))))
     # long context: one 4096-token row per pool kind beside K7's 4096 cache
     long_lens = [4096, 2900, 1500, 17]
     for name, quantized in (("paged_attention", False), ("paged_attention_int8", True)):
@@ -604,6 +689,8 @@ def phase_kernels(dev, seed):
             failed.append(f"{name} [{shape}]: a row's bits depend on the call's rows")
         if not rec.get("rows_independent_of_W", True):
             failed.append(f"{name} [{shape}]: window row 0 differs from the one-token step")
+        if not rec.get("masked_rows_isolated", True):
+            failed.append(f"{name} [{shape}]: a poisoned scratch page changed an unmasked row")
         if not rec.get("poisoned_tail_bitwise_equal", True):
             failed.append(f"{name} [{shape}]: a poisoned tail past length changed the output")
     if failed:
@@ -701,13 +788,31 @@ class _HostClock:
             setattr(owner, name, f)
 
 
-def _drive(phase, eng, prompts, sps, dev, needs=None):
-    """Run one engine over the prompts with the launch counters zeroed just
-    before and read just after; print the path's numbers (device-to-host
-    copies per round among them); fail unless every kernel of ``needs``
-    (default: those PATH_OF assigns to this path) launched and every
-    request drained.  Host ms per round in the copies and decision rules
-    (``_HostClock``) ride along.  Returns (token lists, launches)."""
+def _run(eng, prompts, sps, stagger=False):
+    """``eng.run(prompts, sps)``, or with ``stagger`` one request added per
+    ``step()`` before the drain (the arrival pattern that puts requests'
+    draft windows out of phase).  Returns (outputs, summary)."""
+    if not stagger:
+        return eng.run(prompts, sps)
+    sps = sps if isinstance(sps, list) else [sps] * len(prompts)
+    rids = []
+    for p, sp in zip(prompts, sps):
+        rids.append(eng.add_request(p, sp))
+        eng.step()
+    while eng.has_unfinished():
+        eng.step()
+    return [eng.output_tokens(r) for r in rids], eng.summary()
+
+
+def _drive(phase, eng, prompts, sps, dev, needs=None, stagger=False):
+    """Run one engine over the prompts (``_run``) with the launch counters
+    zeroed just before and read just after; print the path's numbers
+    (device-to-host copies per round, target forwards per emitted token
+    and, on a WDOS engine, the fused-slot summary among them); fail unless
+    every kernel of ``needs`` (default: those PATH_OF assigns to this path)
+    launched and every request drained.  Host ms per round in the copies
+    and decision rules (``_HostClock``) ride along.  Returns (token lists,
+    launches)."""
     from repro_torch.kernels import _lib
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -715,15 +820,20 @@ def _drive(phase, eng, prompts, sps, dev, needs=None):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with _HostClock() as clock:
-        outs, summary = eng.run(prompts, sps)
+        outs, summary = _run(eng, prompts, sps, stagger)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(_lib.launches)
     outs = [o.tolist() for o in outs]
     emitted = sum(len(o) for o in outs)
     t_stats, d_stats = eng.pool_stats()
+    # one block_rotate launch per layer of each target forward
+    t_forwards = launches.get("block_rotate", 0) / eng.target.cfg.n_layers
     emit(phase=phase, requests=len(outs), prompt_lens=[len(p) for p in prompts],
+         staggered=stagger, adaptive=eng.cfg.adaptive, par_mode=summary["par_mode"],
          emitted=emitted, wall_s=wall, tokens_per_s=emitted / wall, rounds=summary["rounds"],
+         steps=summary["steps"], target_forwards=t_forwards,
+         target_forwards_per_token=t_forwards / max(emitted, 1), fused=summary.get("fused"),
          acceptance_rate=summary["acceptance_rate"], kv_quant=summary["kv_quant"],
          spec_mode=summary["spec_mode"], tree=summary["tree"],
          host_copies_per_round=summary["host_copies"] / max(summary["rounds"], 1),
@@ -804,13 +914,13 @@ def _sampled(seed, kv_quant=None):
                           kv_quant=kv_quant)
 
 
-def _replay_equal(phase, dev, pair, cfg, sps, outs):
+def _replay_equal(phase, dev, pair, cfg, sps, outs, stagger=False):
     """A second engine on the same requests must give identical tokens in
     every row (the key streams make sampled rows reproducible)."""
     from repro_torch.serving.engine import Engine
 
     target, draft, prompts = pair
-    again, _ = Engine(target, draft, cfg, device=dev).run(prompts, sps)
+    again, _ = _run(Engine(target, draft, cfg, device=dev), prompts, sps, stagger)
     same = [a.tolist() == o for a, o in zip(again, outs)]
     emit(phase=f"{phase}_replay", identical=f"{sum(same)}/{len(same)}")
     if not all(same):
@@ -854,10 +964,152 @@ def phase_sampled_tree_path(dev, pair):
     target, draft, prompts = pair
     cfg = EngineConfig(kv_quant="mixed", spec_mode="tree")
     sps = [_sampled(i, "int8" if i % 2 else "none") for i in range(len(prompts))]
-    outs, _ = _drive("sampled_tree_path", Engine(target, draft, cfg, device=dev), prompts, sps,
-                     dev, needs=["paged_attention_tree", "paged_attention_int8_tree"])
+    with _DecisionLog() as log:
+        outs, _ = _drive("sampled_tree_path", Engine(target, draft, cfg, device=dev), prompts,
+                         sps, dev, needs=["paged_attention_tree", "paged_attention_int8_tree"])
     _replay_equal("sampled_tree_path", dev, pair, cfg, sps, outs)
+    return sps, outs, log
+
+
+def _divergences(target, prompts, sps, got, want, log_got, log_want, kinds):
+    """The rows of two runs of the same requests that differ, each with
+    whether it is excused as a near-tie: a greedy row's first divergence
+    at a top-2 margin of at most NEAR_TIE (``_compare_rows``, of the row's
+    storage kind; ``None``: the dense-cache logits), a sampled row's first
+    differing host decision taken from logit rows within NEAR_TIE of each
+    other (``_first_decision_flip``)."""
+    out = []
+    for rid, (p, sp, a, b, kind) in enumerate(zip(prompts, sps, got, want, kinds)):
+        if a == b:
+            continue
+        if sp.greedy:
+            row = _compare_rows(target, [p], [a], [b], [kind])[0]
+            out.append(dict(row, request=rid, near_tie=row["top2_margin"] <= NEAR_TIE))
+        else:
+            flip = _first_decision_flip(log_got, log_want, rid)
+            out.append(dict(flip or {}, request=rid, near_tie=flip is not None
+                            and flip["logit_max_abs_diff"] <= NEAR_TIE))
+    return out
+
+
+def _compare_decisions(phase, target, prompts, sps, got, want, log_got, log_want, kinds):
+    """Fail unless every row of two runs is equal or a near-tie
+    (``_divergences``)."""
+    div = _divergences(target, prompts, sps, got, want, log_got, log_want, kinds)
+    emit(phase=f"{phase}_check", equal=f"{len(prompts) - len(div)}/{len(prompts)}",
+         divergences=div, near_tie=NEAR_TIE)
+    bad = [r for r in div if not r["near_tie"]]
+    if bad:
+        raise AssertionError(f"{phase}: rows differ beyond a near-tie: {bad}")
+
+
+def phase_adaptive_path(dev, pair, fp_outs):
+    """The main path's pair and greedy requests under ``EngineConfig(
+    adaptive=True)`` (APSD short/long draft windows), one request admitted
+    per step: every main-path kernel launches (the rotation once per layer
+    of each target forward), and each row equals the main path's except at
+    a near-tie."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    target, draft, prompts = pair
+    sps = [SamplingParams(max_tokens=32)] * len(prompts)
+    outs, launches = _drive("adaptive_path",
+                            Engine(target, draft, EngineConfig(adaptive=True), device=dev),
+                            prompts, sps, dev, needs=MAIN_KERNELS, stagger=True)
+    _check_rotations("adaptive_path", launches, target.cfg.n_layers)
+    _compare_decisions("adaptive_path", target, prompts, sps, outs, fp_outs, None, None,
+                       ["none"] * len(prompts))
+
+
+def phase_wdos_path(dev, pair):
+    """Fused WDOS rounds at ``EngineConfig(adaptive=True, par_mode="wdos")``
+    with requests 0 and 2 sampled as on the sampled path, one request
+    admitted per step, against its two-phase twin (``adaptive=True``, the
+    same requests and arrivals) run just before it in the same call: every
+    main-path kernel launches, the rotation once per layer of each target
+    forward; some slot verified one request while another drafted; each
+    row equals the twin's (near-tie and decision-log rules); a replay is
+    identical.  Both runs print tokens/s, rounds, target forwards per
+    emitted token and device-to-host copies per round."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    target, draft, prompts = pair
+    sps = [_sampled(i) if i % 2 == 0 else SamplingParams(max_tokens=32)
+           for i in range(len(prompts))]
+    twin_cfg = EngineConfig(adaptive=True)
+    cfg = EngineConfig(adaptive=True, par_mode="wdos")
+    with _DecisionLog() as log_twin:
+        twin, _ = _drive("wdos_path_two_phase", Engine(target, draft, twin_cfg, device=dev),
+                         prompts, sps, dev, needs=MAIN_KERNELS, stagger=True)
+    eng = Engine(target, draft, cfg, device=dev)
+    with _DecisionLog() as log:
+        outs, launches = _drive("wdos_path", eng, prompts, sps, dev, needs=MAIN_KERNELS,
+                                stagger=True)
+    _check_rotations("wdos_path", launches, target.cfg.n_layers)
+    fused = eng.summary()["fused"]
+    if fused["fused_slots"] <= 0:
+        raise AssertionError(f"wdos path: no slot mixed verify and draft rows: {fused}")
+    _compare_decisions("wdos_path", target, prompts, sps, outs, twin, log, log_twin,
+                       ["none"] * len(prompts))
+    _replay_equal("wdos_path", dev, pair, cfg, sps, outs, stagger=True)
     return sps
+
+
+def phase_wdos_tree_path(dev, pair, tree_sps, tree_outs, tree_log):
+    """The sampled tree path's engine (mixed KV, tree, every request
+    sampled, 1 and 3 on int8) with ``par_mode="wdos"``, one request
+    admitted per step: both tree bodies launch, the rotation once per
+    layer of each target forward, some slot verified one request while
+    another drafted, each row equals the sampled tree path's (decision-log
+    rule), and a replay is identical."""
+    from repro_torch.serving.engine import Engine, EngineConfig
+
+    target, draft, prompts = pair
+    cfg = EngineConfig(kv_quant="mixed", spec_mode="tree", par_mode="wdos")
+    eng = Engine(target, draft, cfg, device=dev)
+    with _DecisionLog() as log:
+        outs, launches = _drive("wdos_tree_path", eng, prompts, tree_sps, dev,
+                                needs=["paged_attention_tree", "paged_attention_int8_tree"],
+                                stagger=True)
+    _check_rotations("wdos_tree_path", launches, target.cfg.n_layers)
+    fused = eng.summary()["fused"]
+    if fused["fused_slots"] <= 0:
+        raise AssertionError(f"wdos tree path: no slot mixed verify and draft rows: {fused}")
+    _compare_decisions("wdos_tree_path", target, prompts, tree_sps, outs, tree_outs, log,
+                       tree_log, [sp.kv_quant for sp in tree_sps])
+    _replay_equal("wdos_tree_path", dev, pair, cfg, tree_sps, outs, stagger=True)
+    return cfg
+
+
+def phase_self_draft_path(dev, pair, fp_outs):
+    """The paper target drafting for itself under ``adaptive=True``, greedy,
+    one request admitted per step, two-phase and then ``par_mode="wdos"``
+    in the same call.  The random-weight draft is never accepted, so only
+    a self-draft moves the APSD controllers to PAR: some round of each run
+    must draft a long_dl window (the verify at M = 8 * (long_dl + 1)).  The
+    rotation runs once per layer of every forward (the draft's forwards
+    are target forwards here); each row equals the main path's except at a
+    near-tie.  Both runs print tokens/s, rounds, forwards per emitted token
+    and copies per round."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.core.apsd import PAR
+
+    target, _, prompts = pair
+    sps = [SamplingParams(max_tokens=32)] * len(prompts)
+    needs = ["w4a8_matmul", "block_rotate", "paged_attention"]
+    for phase, cfg in (("self_draft_path_two_phase", EngineConfig(adaptive=True)),
+                       ("self_draft_wdos_path", EngineConfig(adaptive=True, par_mode="wdos"))):
+        eng = Engine(target, target, cfg, device=dev)
+        outs, launches = _drive(phase, eng, prompts, sps, dev, needs=needs, stagger=True)
+        _check_rotations(phase, launches, target.cfg.n_layers)
+        windows = [eng.request(r).history for r in range(len(prompts))]
+        long_rounds = sum(h[0] == PAR and h[1] == cfg.long_dl for hist in windows for h in hist)
+        emit(phase=f"{phase}_windows", long_dl_rounds=long_rounds,
+             history=[[list(map(int, h)) for h in hist] for hist in windows])
+        if long_rounds <= 0:
+            raise AssertionError(f"{phase}: no controller reached PAR (no long_dl window)")
+        _compare_decisions(phase, target, prompts, sps, outs, fp_outs, None, None,
+                           ["none"] * len(prompts))
 
 
 def phase_stop_path(dev, pair, fp_outs):
@@ -894,9 +1146,10 @@ def phase_stop_path(dev, pair, fp_outs):
                              f"sink {sink}, used pages {used}")
 
 
-def phase_profile(dev, pair, path, cfg, sps, rounds: int = 3) -> None:
+def phase_profile(dev, pair, path, cfg, sps, rounds: int = 3, stagger=False) -> None:
     """Where a round's time goes on one path: the same 4 requests on a
-    fresh engine of ``cfg`` (request i with ``sps[i]``), two warm rounds,
+    fresh engine of ``cfg`` (request i with ``sps[i]``), two warm rounds
+    (with ``stagger``, one round after each request's arrival instead),
     then ``rounds`` rounds under torch.profiler (CPU and CUDA
     activities).  Prints wall ms per round, summed device-kernel ms per
     round (their ratio is the device's busy share; the profiler adds host
@@ -911,8 +1164,11 @@ def phase_profile(dev, pair, path, cfg, sps, rounds: int = 3) -> None:
     eng = Engine(target, draft, cfg, device=dev)
     for p, sp in zip(prompts, sps):
         eng.add_request(p, sp)
-    eng.step()
-    eng.step()
+        if stagger:
+            eng.step()
+    if not stagger:
+        eng.step()
+        eng.step()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -937,7 +1193,8 @@ def phase_profile(dev, pair, path, cfg, sps, rounds: int = 3) -> None:
     calls = {key: sum(e.count for e in events if e.key == key) // rounds
              for key in ("aten::roll", "aten::cat", "cudaLaunchKernel", "Memcpy DtoH")}
     calls["Memcpy DtoH (any)"] = sum(e.count for e in events if "DtoH" in e.key) // rounds
-    emit(phase="profile", path=path, rounds=rounds, wall_ms_per_round=wall * 1e3 / rounds,
+    emit(phase="profile", path=path, rounds=rounds, staggered=stagger,
+         wall_ms_per_round=wall * 1e3 / rounds,
          device_ms_per_round=device_ms / rounds, device_busy_share=device_ms / (wall * 1e3),
          port_kernels_ms_per_round={k: list(v) for k, v in port.items()},
          calls_per_round=calls,
@@ -1084,30 +1341,22 @@ def phase_card_vs_cpu(dev, seed):
           for i in range(len(prompts))]),
         ("sampled_mixed_tree", EngineConfig(max_batch=4, kv_quant="mixed", spec_mode="tree"),
          [_sampled(i, k) for i, k in enumerate(kinds)]),
+        ("wdos_chain", EngineConfig(max_batch=4, adaptive=True, par_mode="wdos"),
+         [_sampled(i) if i % 2 == 0 else SamplingParams(max_tokens=32)
+          for i in range(len(prompts))]),
     ]
     bad = []
     for name, cfg, sps in runs:
+        stagger = cfg.par_mode == "wdos"  # arrivals out of phase: mixed slots
         with _DecisionLog() as log_gpu:
-            gpu, _ = Engine(t_gpu, d_gpu, cfg, device=dev).run(prompts, sps)
+            gpu, _ = _run(Engine(t_gpu, d_gpu, cfg, device=dev), prompts, sps, stagger)
         with _DecisionLog() as log_cpu:
-            cpu, _ = Engine(t_cpu, d_cpu, cfg, device="cpu").run(prompts, sps)
+            cpu, _ = _run(Engine(t_cpu, d_cpu, cfg, device="cpu"), prompts, sps, stagger)
         gpu, cpu = [o.tolist() for o in gpu], [o.tolist() for o in cpu]
-        equal = sum(a == b for a, b in zip(gpu, cpu))
-        ties = []
-        for rid, (p, sp, a, b) in enumerate(zip(prompts, sps, gpu, cpu)):
-            if a == b:
-                continue
-            if sp.greedy:
-                pos, margin = _first_divergence_margin(t_cpu, p, a, b)
-                tie = {"request": rid, "position": pos, "top2_margin": margin,
-                       "near_tie": margin <= NEAR_TIE}
-            else:
-                flip = _first_decision_flip(log_gpu, log_cpu, rid)
-                tie = dict(flip or {}, request=rid,
-                           near_tie=flip is not None and flip["logit_max_abs_diff"] <= NEAR_TIE)
-            ties.append(tie)
-        emit(phase="card_vs_cpu", engine=name, equal=f"{equal}/{len(prompts)}",
-             divergences=ties)
+        ties = _divergences(t_cpu, prompts, sps, gpu, cpu, log_gpu, log_cpu,
+                            [None] * len(prompts))
+        emit(phase="card_vs_cpu", engine=name,
+             equal=f"{len(prompts) - len(ties)}/{len(prompts)}", divergences=ties)
         bad += [dict(t, engine=name) for t in ties if not t["near_tie"]]
     if bad:
         raise AssertionError(f"card and CPU tokens differ beyond a near-tie: {bad}")
@@ -1119,8 +1368,8 @@ def phase_card_vs_cpu(dev, seed):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile a few rounds of the main and "
-                         "the tree path (torch.profiler)")
+                    help="after the paths, profile a few rounds of six of them "
+                         "(torch.profiler)")
     args = ap.parse_args(argv)
 
     if not torch.cuda.is_available():
@@ -1145,8 +1394,14 @@ def main(argv=None) -> int:
     launches["int8_path"], int8_outs = phase_int8_path(dev, pair, fp_outs)
     launches["tree_path"] = phase_tree_path(dev, pair, fp_outs, int8_outs)
     sampled_sps = phase_sampled_path(dev, pair, fp_outs)
-    sampled_tree_sps = phase_sampled_tree_path(dev, pair)
+    sampled_tree_sps, sampled_tree_outs, sampled_tree_log = phase_sampled_tree_path(dev, pair)
     phase_stop_path(dev, pair, fp_outs)
+    phase_adaptive_path(dev, pair, fp_outs)
+    wdos_sps = phase_wdos_path(dev, pair)
+    wdos_tree_cfg = phase_wdos_tree_path(dev, pair, sampled_tree_sps, sampled_tree_outs,
+                                         sampled_tree_log)
+    del sampled_tree_log
+    phase_self_draft_path(dev, pair, fp_outs)
     if args.profile:
         from repro_torch.serving.engine import EngineConfig, SamplingParams
 
@@ -1157,6 +1412,10 @@ def main(argv=None) -> int:
                        for k in ("none", "int8", "none", "int8")])
         phase_profile(dev, pair, "sampled_path", EngineConfig(), sampled_sps)
         phase_profile(dev, pair, "sampled_tree_path", tree_cfg, sampled_tree_sps)
+        phase_profile(dev, pair, "wdos_path", EngineConfig(adaptive=True, par_mode="wdos"),
+                      wdos_sps, stagger=True)
+        phase_profile(dev, pair, "wdos_tree_path", wdos_tree_cfg, sampled_tree_sps,
+                      stagger=True)
     del pair
     phase_card_vs_cpu(dev, SEED)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s on {smi}")

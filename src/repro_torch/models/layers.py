@@ -164,16 +164,26 @@ def forward_cache_ctx(cache: Optional[dict], b: int, s: int):
     window slot its depth, so positions = offset + win_pos (slot order is
     BFS, RoPE follows depth), and ``tree_mask`` (B, S, S) its ancestor
     relation.  A dense cache (``{"length": int, "attn": {"k": (L, B, S_max,
-    kvh, hd), ...}}``) or None yields an int offset and ``paged=None``."""
+    kvh, hd), ...}}``) or None yields an int offset and ``paged=None``.
+
+    Role mask (fused slots): an optional ``"role_mask"`` (B,) bool selects
+    the rows that take part in this forward.  A masked row's length becomes
+    0 and its whole page-table row the pool's scratch page (its last), so
+    its writes land where no request reads; several masked rows may write
+    the same scratch slots, so their outputs are garbage no caller reads."""
     if cache is not None and "page_table" in cache:
-        if "role_mask" in cache:
-            raise NotImplementedError("paged cache key not ported yet: role_mask")
         offset = cache["lengths"]
+        table = cache["page_table"]
+        mask = cache.get("role_mask")
+        if mask is not None:
+            scratch = cache["attn"]["k"].shape[1] - 1
+            offset = torch.where(mask, offset, torch.zeros_like(offset))
+            table = torch.where(mask[:, None], table, torch.full_like(table, scratch))
         win_pos = cache.get("win_pos")
         if win_pos is None:
             win_pos = torch.arange(s, device=offset.device)[None, :]
         positions = offset[:, None].long() + win_pos.long()
-        return offset, positions.expand(b, s), (cache["page_table"], cache.get("tree_mask"))
+        return offset, positions.expand(b, s), (table, cache.get("tree_mask"))
     offset = int(cache["length"]) if cache is not None else 0
     device = cache["attn"]["k"].device if cache is not None else None
     positions = (offset + torch.arange(s, device=device))[None, :].expand(b, s)

@@ -10,9 +10,9 @@ repro/serving/api.py).
 * ``EngineConfig`` — engine-wide knobs.  The paged-attention path is not a
   knob here: the device decides (kernel on the card, plain version on the
   CPU).  Non-default values of the features this port does not carry yet
-  are accepted by the dataclass and refused by ``Engine``; the knobs that
-  only those features read (APSD short/long lengths, byte budgets) are
-  left out.
+  (the prefix cache, device-time profiling) are accepted by the dataclass
+  and refused by ``Engine``; the knobs that only those features read
+  (byte budgets) are left out.
 """
 from __future__ import annotations
 
@@ -116,7 +116,12 @@ class EngineConfig:
 
     max_batch: int = 8  # concurrent DECODE slots (batched model rows)
     page_size: int = 16  # tokens per KV page
-    draft_len: int = 3  # fixed draft window
+    draft_len: int = 3  # fixed draft window (adaptive=False)
+    # per-request APSD draft lengths: each request's controller picks
+    # short_dl (NONPAR) or long_dl (PAR) per round from its own acceptance
+    adaptive: bool = False
+    short_dl: int = 2
+    long_dl: int = 6
     num_pages: Optional[int] = None  # page budget per pool (None: fit
     # max_batch worst-case requests of max_model_len tokens)
     max_model_len: Optional[int] = None  # peak cache length of a request
@@ -132,9 +137,12 @@ class EngineConfig:
     spec_branches: int = 2
     tree_budget: int = 8
     branch_threshold: float = 0.6
+    # "off": two-phase rounds (every row drafts in lockstep, then one
+    # verify pass); "wdos": each step runs a horizon of fused slots in
+    # which window-full rows verify while the other rows draft
+    # (core/scheduler.plan_mixed_slot).  Tokens are the same in both.
+    par_mode: str = "off"
     # not ported yet: refused by Engine at any value but the default
-    adaptive: bool = False  # APSD draft-length adaptation
-    par_mode: str = "off"  # "wdos" fused rounds
     prefix_cache: bool = False
     profile_every_n: int = 0  # sampled device-time profiling
 
@@ -160,12 +168,17 @@ class EngineConfig:
             raise ValueError(f"profile_every_n must be >= 0, got {self.profile_every_n}")
 
     @property
+    def max_dl(self) -> int:
+        """The longest draft window a request can open."""
+        return self.long_dl if self.adaptive else self.draft_len
+
+    @property
     def spec_window(self) -> int:
         """Worst-case speculative tokens resident in a request's cache at
         once — what admission reserves beyond prompt + max_tokens.  A chain
-        round writes at most ``draft_len`` uncommitted drafts; a tree round
+        round writes at most ``max_dl`` uncommitted drafts; a tree round
         writes the whole padded window (``tree_budget`` nodes)."""
-        return self.tree_budget if self.spec_mode == "tree" else self.draft_len
+        return self.tree_budget if self.spec_mode == "tree" else self.max_dl
 
     @property
     def kv_kinds(self) -> Tuple[str, ...]:
@@ -188,6 +201,6 @@ class EngineConfig:
     def unported(self) -> List[str]:
         """The non-default settings this port does not carry yet."""
         defaults = EngineConfig.__dataclass_fields__
-        names = ("adaptive", "par_mode", "prefix_cache", "profile_every_n")
+        names = ("prefix_cache", "profile_every_n")
         return [f"{n}={getattr(self, n)!r}" for n in names
                 if getattr(self, n) != defaults[n].default]

@@ -1,6 +1,6 @@
 """Continuous-batching scheduler over the paged KV pools (torch counterpart
-of repro/serving/batcher.py, without the prefix cache and the fused-PAR
-slot telemetry, which are not ported yet).
+of repro/serving/batcher.py, without the prefix cache, which is not ported
+yet).
 
 A QUEUED request is admitted into a free batch slot only when BOTH pools
 (target + draft) can reserve its worst-case page count (prompt +
@@ -9,7 +9,9 @@ never run out of pages mid-flight; a FINISHED request releases its pages
 at once.  Admission is head-of-line FIFO, and every (slot, request)
 binding is stable from admission to retirement.  Each round also prices
 the dispatched work with the WDOS discrete-event model
-(core/scheduler.py), as the reference does.
+(core/scheduler.py), as the reference does, and under ``par_mode="wdos"``
+each fused slot is counted by kind and priced on its own
+(``record_fused_slot``; ``fused_summary`` reports it).
 """
 from __future__ import annotations
 
@@ -18,7 +20,7 @@ from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core import scheduler as sch
-from repro_torch.core.scheduler import Queue
+from repro_torch.core.scheduler import MixedSlotPlan, Queue
 from repro_torch.serving.observability import MetricsRegistry
 from repro_torch.serving.paged_cache import PagedKVPool
 from repro_torch.serving.request import DraftController, Request, RequestState
@@ -80,11 +82,32 @@ class ContinuousBatcher:
         self._m_finished = self.metrics.counter(
             "requests_finished_total", "Requests retired, by finish reason", ("reason",),
         )
+        self._m_fused_slots = self.metrics.counter(
+            "fused_slots_total",
+            "Fused slots dispatched: kind=fused has cross-request draft+verify "
+            "co-residency, verify_only / draft_only do not", ("kind",),
+        )
+        self._m_fused_rows = self.metrics.counter(
+            "fused_rows_total", "Batch rows occupied across fused slots, by role", ("role",),
+        )
+        self._m_fused_wall = self.metrics.counter(
+            "fused_wall_seconds_total",
+            "Host wall seconds by dispatched program: program=verify is any slot with a "
+            "verify pass (fused or not), draft_only the draft step alone", ("program",),
+        )
+        self._m_wdos_modeled = self.metrics.counter(
+            "wdos_modeled_seconds_total",
+            "Discrete-event makespan of the executed slots under each schedule "
+            "(wdos 4-queue vs in-order issue)", ("schedule",),
+        )
 
     # -- lifecycle ----------------------------------------------------------
 
     def submit(self, req: Request) -> None:
-        req.controller = DraftController(self.cfg.draft_len, self.cfg.draft_len)
+        if self.cfg.adaptive:
+            req.controller = DraftController(self.cfg.short_dl, self.cfg.long_dl)
+        else:
+            req.controller = DraftController(self.cfg.draft_len, self.cfg.draft_len)
         self.queue.append(req)
 
     def admit(self) -> List[Tuple[int, Request]]:
@@ -183,10 +206,58 @@ class ContinuousBatcher:
         for q in Queue:
             self.wdos.busy[q] += s.busy[q]
 
+    # -- fused slot telemetry (par_mode="wdos") ------------------------------
+
+    def record_fused_slot(self, plan: MixedSlotPlan, wall_s: float, verify_width: int,
+                          draft_width: int = 1) -> None:
+        """Account one executed fused slot: its kind and rows, the host wall
+        seconds of its program, and the discrete-event pricing of exactly
+        this plan (so the model and the measurement describe one schedule)."""
+        kind = "fused" if plan.fused else "verify_only" if plan.verify_rows else "draft_only"
+        self._m_fused_slots.labels(kind=kind).inc()
+        if plan.draft_rows:
+            self._m_fused_rows.labels(role="draft").inc(len(plan.draft_rows))
+        if plan.verify_rows:
+            self._m_fused_rows.labels(role="verify").inc(len(plan.verify_rows))
+        program = "verify" if plan.verify_rows else "draft_only"
+        self._m_fused_wall.labels(program=program).inc(wall_s)
+        b = sch.new_builder()
+        sch.mixed_slot_instrs(b, plan, self.t_layers, self.d_layers, self.t_costs,
+                              self.d_costs, verify_width, draft_width=draft_width)
+        if not b.instrs:
+            return
+        s = sch.wdos_schedule(b.instrs)
+        base = sch.inorder_schedule(b.instrs)
+        self._m_wdos_modeled.labels(schedule="wdos").inc(s.makespan)
+        self._m_wdos_modeled.labels(schedule="inorder").inc(base.makespan)
+
     # -- reporting ----------------------------------------------------------
 
-    def summary(self) -> Dict[str, object]:
+    def fused_summary(self) -> Optional[Dict[str, float]]:
+        """The fused-slot report, derived from the registry counters (None
+        until a fused slot has run); the reference's key set."""
+        slots = self._m_fused_slots.total()
+        if not slots:
+            return None
+        fused = self._m_fused_slots.value(kind="fused")
+        d_rows = self._m_fused_rows.value(role="draft")
+        v_rows = self._m_fused_rows.value(role="verify")
+        modeled_wdos = self._m_wdos_modeled.value(schedule="wdos")
+        modeled_inorder = self._m_wdos_modeled.value(schedule="inorder")
         return {
+            "slots": int(slots),
+            "fused_slots": int(fused),
+            "occupancy": fused / slots,
+            "draft_row_slots": int(d_rows),
+            "verify_row_slots": int(v_rows),
+            "mean_rows_per_slot": (d_rows + v_rows) / slots,
+            "draft_only_wall_s": self._m_fused_wall.value(program="draft_only"),
+            "verify_wall_s": self._m_fused_wall.value(program="verify"),
+            "modeled_overlap_speedup": modeled_inorder / modeled_wdos if modeled_wdos else 1.0,
+        }
+
+    def summary(self) -> Dict[str, object]:
+        out = {
             "requests": self.finished_count,
             "rounds": self.rounds,
             "steps": self.step_count,
@@ -197,3 +268,7 @@ class ContinuousBatcher:
             "wdos_modeled_speedup": self.wdos.modeled_speedup,
             "wdos_utilization": {q.name: self.wdos.utilization(q) for q in Queue},
         }
+        fused = self.fused_summary()
+        if fused is not None:
+            out["fused"] = fused
+        return out

@@ -1,28 +1,48 @@
 """Serving engine: the stepwise continuous-batching speculative-decoding
-runtime (torch counterpart of repro/serving/engine.py, two-phase rounds,
-chain or tree, greedy or sampled).
+runtime (torch counterpart of repro/serving/engine.py: two-phase or fused
+WDOS rounds, chain or tree, greedy or sampled, fixed or adaptive drafts).
 
 ``Engine`` admits requests at any time (``add_request``); each ``step()``
-admits what fits, prefills it into both paged pools, and runs one
-two-phase round over every active request.  A chain round: the draft model
-proposes ``draft_len`` tokens per row in lockstep micro-steps (plus one
-straggler step), then ONE batched target pass verifies every row's window,
-and the host applies the accept rule and commits per row.  A tree round
-(``spec_mode="tree"``): each draft dispatch grows every row's tree by one
-level over a fixed window of ``tree_budget + 1`` slots, one ancestor-masked
-target pass verifies the trees, the multi-branch accept rule commits a root
-path per row, and the KV of an accepted non-leftmost path is copied into
-chain order.  ``abort`` frees a request's pages at once.
+admits what fits, prefills it into both paged pools, and runs one round
+over every active request.  ``abort`` frees a request's pages at once.
+
+Two schedules (``EngineConfig.par_mode``, tokens the same in both):
+
+* ``"off"``: two-phase rounds.  A chain round: the draft model proposes
+  ``round_dl`` tokens per row in lockstep micro-steps (plus one straggler
+  step), then ONE batched target pass verifies every row's window, and the
+  host applies the accept rule and commits per row.  A tree round
+  (``spec_mode="tree"``): each draft dispatch grows every row's tree by one
+  level over a fixed window of ``tree_budget + 1`` slots, one
+  ancestor-masked target pass verifies the trees, the multi-branch accept
+  rule commits a root path per row, and the KV of an accepted non-leftmost
+  path is copied into chain order.
+* ``"wdos"``: each step runs a horizon of fused slots planned by
+  core/scheduler.plan_mixed_slot.  In a slot the rows whose window (or
+  tree) is full VERIFY on the target, with a fixed window of ``max_dl +
+  1`` (chain) or ``tree_budget + 1`` (tree), while every other row DRAFTS
+  one more token (or tree level); the target pass and the draft step run
+  one after the other on the current stream, each with a per-row role mask
+  that diverts the rows it does not serve to the pool's scratch page
+  (models/layers.forward_cache_ctx).  A row's open window carries across
+  steps (serving/request.py), so a short-window row commits several
+  windows while a long-window neighbour drafts.
+
+Draft lengths: fixed (``draft_len``), or under ``adaptive`` each request's
+APSD controller picks ``short_dl`` or ``long_dl`` per window from its own
+acceptance; admission reserves the longest (``max_dl``).
 
 Sampled requests (``temperature > 0``) follow the reference: the draft
-proposals of a chain round in which any row samples hop through the host,
-where each sampled row draws from its own filtered distribution with its
-own key stream (greedy rows take the argmax of the same host row, so their
-tokens are those of an all-greedy batch), and the host applies the lossless
-rejection rule (chain) or the multi-branch tree rule with the draft rows
-kept per branch point.  All-greedy chain batches keep the next-token argmax
-on the device.  Stop strings are matched at commit (serving/request.py); a
-stopped request retires in the same round.
+proposals of a chain round or slot in which any drafting row samples hop
+through the host, where each sampled row draws from its own filtered
+distribution with its own key stream (greedy rows take the argmax of the
+same host row, so their tokens are those of an all-greedy batch), and the
+host applies the lossless rejection rule (chain) or the multi-branch tree
+rule with the draft rows kept per branch point.  All-greedy drafting keeps
+the next-token argmax on the device.  Keys are indexed by committed rounds,
+so neither the batch nor the schedule changes a request's tokens.  Stop
+strings are matched at commit (serving/request.py); a stopped request
+retires in the same round (on the WDOS paths, in the same slot).
 
 KV storage (``kv_quant``): "none" keeps the model dtype, "int8" stores
 int8 pages with one f32 scale per (slot, kv head), "mixed" allocates both
@@ -39,14 +59,14 @@ the pools are updated in place and never copied.
 
 Invariants carried over from the reference: a request's pages are reserved
 and backed at admission, so its page-table row is stable for its lifetime;
-a round writes at most ``draft_len + 1`` positions past the committed
-prefix and rewinds to ``committed - 1``; inactive batch rows point every
-table slot at the pool's scratch page.  Greedy tokens are per-row
-deterministic, so batch composition never changes a request's output.
+a round writes at most ``max_dl + 1`` positions past the committed prefix
+(a tree round its whole window) and rewinds to ``committed - 1``; inactive
+and masked rows point every table slot at the pool's scratch page, and no
+caller reads their logits.  Greedy tokens are per-row deterministic, so
+batch composition never changes a request's output.
 
-Not ported yet (refused with NotImplementedError): fused WDOS rounds, the
-prefix cache, adaptive draft lengths, device-time profiling, the tracer and
-the flight recorder.
+Not ported yet (refused with NotImplementedError): the prefix cache and
+device-time profiling; the tracer and the flight recorder are absent.
 """
 from __future__ import annotations
 
@@ -57,6 +77,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import scheduler as sch
 from repro_torch.core.speculative import (
     LMInterface,
     sample_token_host,
@@ -169,12 +190,18 @@ def _make_paged_step(model: ServingModel):
     scales) are written into the store tensors in place; returns the
     logits.  A tree window passes ``win_pos`` (B, W) slot depths and
     ``tree_mask`` (B, W, W) ancestor masks (the reference's
-    ``_make_tree_step``)."""
+    ``_make_tree_step``).  ``role_mask`` (B,) bool leaves only the rows it
+    selects writing their own pages: a fused WDOS slot runs the target's
+    step with the verifying rows' mask, then the draft's with the drafting
+    rows' (the reference's fused and masked draft steps)."""
 
-    def step(params, tokens, store, page_table, lengths, win_pos=None, tree_mask=None):
+    def step(params, tokens, store, page_table, lengths, win_pos=None, tree_mask=None,
+             role_mask=None):
         cache = {"lengths": lengths, "page_table": page_table, "attn": store}
         if tree_mask is not None:
             cache["win_pos"], cache["tree_mask"] = win_pos, tree_mask
+        if role_mask is not None:
+            cache["role_mask"] = role_mask
         logits, _ = model._apply(params, tokens, cache)
         return logits
 
@@ -456,9 +483,7 @@ class Engine:
             return self._batcher.cancel_queued(request_id) is not None
         slot = self._batcher.slot_of(request_id)
         assert slot is not None, "active request without a slot"
-        self._t_tables.clear_row(slot)
-        self._d_tables.clear_row(slot)
-        self._batcher.retire(slot, reason="abort")
+        self._retire(slot, reason="abort")
         return True
 
     def has_unfinished(self) -> bool:
@@ -540,18 +565,19 @@ class Engine:
             m[slot] = req.kv_kind == "int8"
         return torch.as_tensor(m, device=self.device)
 
-    def _dispatch(self, step_fn, params, tokens, stores, table, lengths, kvq, *extra):
-        """One logical batched forward over every storage kind: one call on
-        a single-kind engine; on a mixed engine one call per store, logits
-        merged row-wise by kind.  A row writes only its own pages of each
-        store and reads only the store of its kind, so the other call leaves
-        unread garbage, never corruption.  ``extra`` carries the tree
-        window's depths and mask."""
+    def _dispatch(self, run: Callable[[str], Any], kvq):
+        """One logical batched forward over every storage kind: ``run(kind)``
+        calls the step on that kind's store(s) and returns its logits.  A single-kind engine calls it once; a mixed engine
+        once per store, the logits merged row-wise by kind.  A row writes
+        only its own pages of each store and reads only the store of its
+        kind, so the other call leaves unread garbage, never corruption."""
         if kvq is None:
-            return step_fn(params, tokens, stores[self._kinds[0]], table, lengths, *extra)
-        outs = {k: step_fn(params, tokens, stores[k], table, lengths, *extra)
-                for k in self._kinds}
+            return run(self._kinds[0])
+        outs = {k: run(k) for k in self._kinds}
         return torch.where(kvq[:, None, None], outs["int8"], outs["none"])
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(a, device=self.device)
 
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
         """A round's device-to-host copy, counted in ``host_copies_total``."""
@@ -565,29 +591,51 @@ class Engine:
         self._m_table_upload.inc(time.perf_counter() - t0)
         return d_table, d_len0, t_table, t_len0
 
-    def _retire_done(self, active) -> None:
-        for slot, req in active:
-            if req.done:
-                self._t_tables.clear_row(slot)
-                self._d_tables.clear_row(slot)
-                self._batcher.retire(slot)
-        self._batcher.step_count += 1
+    def _table_devs(self):
+        """(target, draft) page tables on the device for a WDOS step: one
+        upload serves every slot (the rows retired mid-step are masked)."""
+        t0 = time.perf_counter()
+        tables = self._t_tables.table_dev(), self._d_tables.table_dev()
+        self._m_table_upload.inc(time.perf_counter() - t0)
+        return tables
+
+    def _retire(self, slot: int, reason: str = "length") -> None:
+        self._t_tables.clear_row(slot)
+        self._d_tables.clear_row(slot)
+        self._batcher.retire(slot, reason=reason)
 
     def step(self) -> List[RequestOutput]:
-        """Admit what fits, then run ONE two-phase round over every active
-        request: a chain round, or a tree round under ``spec_mode="tree"``.
-        Returns a ``RequestOutput`` per request that progressed."""
+        """Admit what fits, then run ONE round over every active request: a
+        two-phase chain or tree round, or under ``par_mode="wdos"`` a horizon
+        of fused slots (which may commit several windows per request).
+        Returns a ``RequestOutput`` per request active at the round's
+        start."""
         self._admit()
         active = self._batcher.active()
-        if not active:
-            self._batcher.step_count += 1
-            return []
-        if self.cfg.spec_mode == "tree":
-            self._tree_round(active)
-        else:
-            self._chain_round(active)
-        self._retire_done(active)
+        if active:
+            tree = self.cfg.spec_mode == "tree"
+            if self.cfg.par_mode == "wdos":
+                (self._fused_tree_round if tree else self._fused_round)(active)
+            else:
+                (self._tree_round if tree else self._chain_round)(active)
+                for slot, req in active:
+                    if req.done:
+                        self._retire(slot)
+        self._batcher.step_count += 1
         return [self._output_for(req) for _, req in active]
+
+    def _commit(self, req: Request, new: List[int], n_acc: int, dl: int, drafted: int,
+                work: List[Tuple[Request, int]]) -> None:
+        """Commit one verified window of ``dl`` (``drafted`` proposals; a
+        tree's node count), record the round and step the request's APSD
+        controller."""
+        req.commit(new)
+        req.record_round(req.controller.mode, dl, n_acc, len(new))
+        req.rounds += 1
+        req.drafted += drafted
+        req.accepted += n_acc
+        req.controller.observe(n_acc, dl)
+        work.append((req, dl))
 
     def _chain_round(self, active) -> None:
         cfg = self.cfg
@@ -605,14 +653,12 @@ class Engine:
         cur = np.zeros((cfg.max_batch,), np.int32)
         for slot, req in active:
             cur[slot] = req.last_tok
-        cur_dev = torch.as_tensor(cur, device=self.device)
+        cur_dev = self._dev(cur)
         draft_cols: List[Any] = []
         q_cols: List[np.ndarray] = []  # per-position draft logits (sampled rounds)
         for j in range(round_dl + 1):
-            logits = self._dispatch(
-                self._d_step, self.draft.params, cur_dev[:, None], self._d_stores,
-                d_table, d_len0 + j, kvq,
-            )
+            logits = self._dispatch(lambda k: self._d_step(
+                self.draft.params, cur_dev[:, None], self._d_stores[k], d_table, d_len0 + j), kvq)
             if j < round_dl:
                 if any_sampled:
                     last = self._to_host(logits[:, -1, :].float())
@@ -624,7 +670,7 @@ class Engine:
                             nxt[slot] = sample_token_host(req.draft_key(j), last[slot],
                                                           sp.temperature, sp.top_k, sp.top_p)
                     draft_cols.append(nxt)
-                    cur_dev = torch.as_tensor(nxt, device=self.device)
+                    cur_dev = self._dev(nxt)
                 else:
                     cur_dev = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
                     draft_cols.append(cur_dev)
@@ -639,14 +685,13 @@ class Engine:
         window = np.zeros((cfg.max_batch, round_dl + 1), np.int32)
         window[:, 0] = cur
         window[:, 1:] = drafts
-        v_logits = self._dispatch(
-            self._t_step, self.target.params, torch.as_tensor(window, device=self.device),
-            self._t_stores, t_table, t_len0, kvq,
-        )
+        window_dev = self._dev(window)
+        v_logits = self._dispatch(lambda k: self._t_step(
+            self.target.params, window_dev, self._t_stores[k], t_table, t_len0), kvq)
         p_logits = self._to_host(v_logits.float())  # (B, round_dl+1, V)
 
         # ---- per-request accept / commit: a pure length update per row
-        work = []
+        work: List[Tuple[Request, int]] = []
         for slot, req in active:
             dl = dls[slot]
             sp = req.sampling
@@ -658,12 +703,7 @@ class Engine:
                     req.accept_key(), drafts[slot], p_logits[slot], q_logits, dl,
                     sp.temperature, sp.top_k, sp.top_p,
                 )
-            req.commit(new)
-            req.rounds += 1
-            req.drafted += dl
-            req.accepted += n_acc
-            req.controller.observe(n_acc, dl)
-            work.append((req, dl))
+            self._commit(req, new, n_acc, dl, dl, work)
             # both models wrote round_dl+1 positions; keep n_acc + 1
             # (draft invariant: cache == committed[:-1], incl. straggler)
             for seq in (req.t_seq, req.d_seq):
@@ -671,7 +711,196 @@ class Engine:
                 seq.rewind(round_dl - n_acc, release_pages=False)
         self._batcher.model_round(work)
 
+    # -- fused WDOS rounds (par_mode="wdos") ---------------------------------
+
+    def _fused_round(self, active) -> None:
+        """One chain round as a horizon of ``max_dl + 2`` fused slots (the
+        dispatch budget of a two-phase round of the longest window).  Each
+        slot the planner sends window-full rows to VERIFY (a target window
+        of the fixed width ``max_dl + 1``, causally padded, while the draft
+        side feeds the window's straggler) and every other row to DRAFT one
+        proposal.  A row's open window carries across steps; a row that
+        finishes retires in the slot that finished it."""
+        cfg = self.cfg
+        b, wv = cfg.max_batch, cfg.max_dl + 1
+        # the kinds of the step's first actives cover every later slot (the
+        # active set only shrinks inside a step)
+        kvq = self._kvq_mask(active)
+        t_table, d_table = self._table_devs()
+        work: List[Tuple[Request, int]] = []
+        for _ in range(cfg.max_dl + 2):
+            active = self._batcher.active()
+            if not active:
+                break
+            by_slot = dict(active)
+            for _, req in active:
+                if req.pending_dl is None:
+                    req.begin_window(req.controller.draft_len())
+            plan = sch.plan_mixed_slot([sch.RowPhase(slot=s, window=r.pending_dl,
+                                                     drafted=len(r.pending)) for s, r in active])
+            # every active row runs the draft step: a drafting row its next
+            # proposal, a verifying row its window's straggler
+            d_tok = np.zeros((b, 1), np.int32)
+            d_len = np.zeros((b,), np.int32)
+            d_mask = np.zeros((b,), bool)
+            for slot, req in active:
+                d_tok[slot, 0] = req.draft_tip
+                d_len[slot] = req.d_seq.length + len(req.pending)
+                d_mask[slot] = True
+            d_tok, d_len, d_mask = self._dev(d_tok), self._dev(d_len), self._dev(d_mask)
+
+            # a fused slot: the target's verify window over the verifying
+            # rows, then the draft step over every active row, one after the
+            # other on the current stream; each side's masked rows write only
+            # its pool's scratch page
+            t0 = time.perf_counter()
+            v_logits = v_np = None
+            if plan.verify_rows:
+                v_tok = np.zeros((b, wv), np.int32)
+                t_len = np.zeros((b,), np.int32)
+                v_mask = np.zeros((b,), bool)
+                for slot in plan.verify_rows:
+                    req = by_slot[slot]
+                    v_tok[slot, 0] = req.last_tok
+                    v_tok[slot, 1: 1 + req.pending_dl] = req.pending
+                    t_len[slot] = req.t_seq.length
+                    v_mask[slot] = True
+                v_tok, t_len, v_mask = self._dev(v_tok), self._dev(t_len), self._dev(v_mask)
+                v_logits = self._dispatch(lambda k: self._t_step(
+                    self.target.params, v_tok, self._t_stores[k], t_table, t_len,
+                    role_mask=v_mask), kvq)
+            d_logits = self._dispatch(lambda k: self._d_step(
+                self.draft.params, d_tok, self._d_stores[k], d_table, d_len,
+                role_mask=d_mask), kvq)
+            if v_logits is not None:
+                v_np = self._to_host(v_logits.float())  # (B, max_dl + 1, V)
+            # only drafting rows read the draft logits: the argmax on the
+            # device when none of them samples, else the f32 rows
+            if plan.draft_rows:
+                last = d_logits[:, -1, :]
+                if all(by_slot[s].sampling.greedy for s in plan.draft_rows):
+                    q_np, nxt = None, self._to_host(torch.argmax(last, dim=-1).to(torch.int32))
+                else:
+                    q_np = self._to_host(last.float())
+                    nxt = np.argmax(q_np, axis=-1)
+            self._batcher.record_fused_slot(plan, time.perf_counter() - t0, wv)
+
+            # drafting rows: append the next proposal (the two-phase rule and
+            # the same (round, position) keys, so tokens match across modes)
+            for slot in plan.draft_rows:
+                req = by_slot[slot]
+                sp = req.sampling
+                if sp.greedy:
+                    req.pending.append(int(nxt[slot]))
+                else:
+                    req.pending.append(int(sample_token_host(
+                        req.draft_key(len(req.pending)), q_np[slot],
+                        sp.temperature, sp.top_k, sp.top_p)))
+                    req.pending_q.append(q_np[slot].copy())
+
+            # verifying rows: accept / commit, then back to committed - 1
+            for slot in plan.verify_rows:
+                req = by_slot[slot]
+                dl, sp = req.pending_dl, req.sampling
+                drafts = np.asarray(req.pending, np.int64)
+                if sp.greedy:
+                    new, n_acc = speculative_accept_greedy_host(drafts, v_np[slot], dl)
+                else:
+                    new, n_acc = speculative_sample_host(
+                        req.accept_key(), drafts, v_np[slot], np.stack(req.pending_q), dl,
+                        sp.temperature, sp.top_k, sp.top_p,
+                    )
+                self._commit(req, new, n_acc, dl, dl, work)
+                # the target wrote wv positions, the draft dl + 1 (with the
+                # straggler); both keep n_acc + 1
+                req.t_seq.advance(wv)
+                req.t_seq.rewind(wv - 1 - n_acc, release_pages=False)
+                req.d_seq.advance(dl + 1)
+                req.d_seq.rewind(dl - n_acc, release_pages=False)
+                req.clear_window()
+                if req.done:
+                    self._retire(slot)
+        self._batcher.model_round(work)
+
+    def _fused_tree_round(self, active) -> None:
+        """One tree round as a horizon of ``min(max_dl, tree_budget) + 2``
+        fused slots: tree-full rows VERIFY (the ancestor-masked target
+        window) while every active row re-feeds its tree on the draft side
+        (for a verifying row the straggler that lands the leaf KV; for the
+        others one more level).  Accepted non-leftmost paths are compacted
+        before the next slot, since a committed row's next window overlaps
+        its old slots."""
+        cfg = self.cfg
+        b, w = cfg.max_batch, self._tree_width
+        kvq = self._kvq_mask(active)
+        t_table, d_table = self._table_devs()
+        work: List[Tuple[Request, int]] = []
+        for _ in range(min(cfg.max_dl, cfg.tree_budget) + 2):
+            active = self._batcher.active()
+            if not active:
+                break
+            by_slot = dict(active)
+            for _, req in active:
+                if req.tree_dl is None:
+                    req.begin_tree(min(req.controller.draft_len(), cfg.tree_budget))
+            plan = sch.plan_mixed_slot([sch.RowPhase(slot=s, window=r.tree_dl,
+                                                     drafted=r.tree_depth) for s, r in active])
+            d_len = np.zeros((b,), np.int32)
+            d_mask = np.zeros((b,), bool)
+            for slot, req in active:
+                d_len[slot] = req.d_seq.length
+                d_mask[slot] = True
+            d_win, d_len, d_mask = self._tree_inputs(active), self._dev(d_len), self._dev(d_mask)
+
+            # a fused slot as in the chain round, over tree windows
+            t0 = time.perf_counter()
+            v_logits = v_np = d_np = None
+            if plan.verify_rows:
+                t_len = np.zeros((b,), np.int32)
+                v_mask = np.zeros((b,), bool)
+                for slot in plan.verify_rows:
+                    t_len[slot] = by_slot[slot].t_seq.length
+                    v_mask[slot] = True
+                v_win = self._tree_inputs([(s, by_slot[s]) for s in plan.verify_rows])
+                t_len, v_mask = self._dev(t_len), self._dev(v_mask)
+                v_logits = self._dispatch(lambda k: self._t_step(
+                    self.target.params, v_win[0], self._t_stores[k], t_table, t_len, *v_win[1:],
+                    role_mask=v_mask), kvq)
+            d_logits = self._dispatch(lambda k: self._d_step(
+                self.draft.params, d_win[0], self._d_stores[k], d_table, d_len, *d_win[1:],
+                role_mask=d_mask), kvq)
+            if v_logits is not None:
+                v_np = self._to_host(v_logits.float())  # (B, W, V)
+            if plan.draft_rows:  # tree growth reads every frontier row
+                d_np = self._to_host(d_logits.float())
+            self._batcher.record_fused_slot(plan, time.perf_counter() - t0, w, draft_width=w)
+
+            for slot in plan.draft_rows:
+                _sample_tree_level(by_slot[slot], cfg, d_np[slot])
+            moves_t = {k: ([], []) for k in self._kinds}
+            moves_d = {k: ([], []) for k in self._kinds}
+            for slot in plan.verify_rows:
+                req = by_slot[slot]
+                self._tree_verify_commit(req, v_np[slot], req.tree_dl, moves_t, moves_d, work)
+                if req.done:
+                    self._retire(slot)
+            self._compact_pools(moves_t, moves_d)
+        self._batcher.model_round(work)
+
     # -- tree speculation (spec_mode="tree") ---------------------------------
+
+    def _tree_inputs(self, rows):
+        """(tokens, depths, ancestor masks) on the device, (B, W[, W]), for
+        the tree windows of the (slot, request) ``rows``; every other row
+        sees only itself, so its softmax stays finite."""
+        b, w = self.cfg.max_batch, self._tree_width
+        tok = np.zeros((b, w), np.int32)
+        pos = np.zeros((b, w), np.int32)
+        tm = np.zeros((b, w, w), np.float32)
+        tm[:, np.arange(w), np.arange(w)] = 1.0
+        for slot, req in rows:
+            tok[slot], pos[slot], tm[slot] = _tree_window_rows(req, w)
+        return self._dev(tok), self._dev(pos), self._dev(tm)
 
     def _tree_round(self, active) -> None:
         """One tree round: grow every active row's draft tree one LEVEL per
@@ -682,36 +911,25 @@ class Engine:
         multi-branch accept rule per row, and compact accepted non-leftmost
         paths into chain order."""
         cfg = self.cfg
-        w, b = self._tree_width, cfg.max_batch
         dls = {slot: min(req.controller.draft_len(), cfg.tree_budget) for slot, req in active}
         round_depth = max(dls.values())
         kvq = self._kvq_mask(active)
         d_table, d_len0, t_table, t_len0 = self._load_tables(active)
         for slot, req in active:
             req.begin_tree(dls[slot])
-        diag = np.arange(w)
-
-        def window_inputs():
-            tok = np.zeros((b, w), np.int32)
-            pos = np.zeros((b, w), np.int32)
-            tm = np.zeros((b, w, w), np.float32)
-            tm[:, diag, diag] = 1.0  # inactive rows: self-only, finite softmax
-            for slot, req in active:
-                tok[slot], pos[slot], tm[slot] = _tree_window_rows(req, w)
-            return tuple(torch.as_tensor(a, device=self.device) for a in (tok, pos, tm))
 
         for j in range(round_depth + 1):
-            tok, pos, tm = window_inputs()
-            logits = self._dispatch(self._d_step, self.draft.params, tok, self._d_stores,
-                                    d_table, d_len0, kvq, pos, tm)
+            win = self._tree_inputs(active)
+            logits = self._dispatch(lambda k: self._d_step(
+                self.draft.params, win[0], self._d_stores[k], d_table, d_len0, *win[1:]), kvq)
             if j < round_depth:
                 l_np = self._to_host(logits.float())
                 for slot, req in active:
                     if not req.tree_full:
                         _sample_tree_level(req, cfg, l_np[slot])
-        tok, pos, tm = window_inputs()
-        v_logits = self._dispatch(self._t_step, self.target.params, tok, self._t_stores,
-                                  t_table, t_len0, kvq, pos, tm)
+        win = self._tree_inputs(active)
+        v_logits = self._dispatch(lambda k: self._t_step(
+            self.target.params, win[0], self._t_stores[k], t_table, t_len0, *win[1:]), kvq)
         p_logits = self._to_host(v_logits.float())  # (B, W, V)
 
         work: List[Tuple[Request, int]] = []
@@ -744,16 +962,11 @@ class Engine:
                 req.accept_key(), nodes, parents, p_win, q_win,
                 sp.temperature, sp.top_k, sp.top_p,
             )
-        req.commit(new)
-        req.rounds += 1
-        req.drafted += len(nodes)
-        req.accepted += n_acc
-        req.controller.observe(n_acc, dl)
+        self._commit(req, new, n_acc, dl, len(nodes), work)
         self._m_tree_nodes.inc(len(nodes))
         # a chain of n nodes has n distinct parents; each repeat is a fork
         self._m_tree_branches.inc(len(nodes) - len(set(parents)))
         self._m_tree_depth.observe(n_acc)
-        work.append((req, dl))
         # the accepted path sits at window slots base+1+path[i]; the chain
         # needs it at base+1+i.  RoPE agrees by construction: path[i] is a
         # depth-(i+1) node, encoded at position base+1+i, its destination.

@@ -3,15 +3,18 @@ of repro/serving/request.py).
 
 A request moves QUEUED -> PREFILL -> DECODE -> FINISHED.  While in DECODE it
 owns one PagedSequence per model (target + draft) and a ``DraftController``
-that gives its draft length per round; under ``spec_mode="tree"`` it also
-carries the draft tree in flight.  Tokens stream to an optional sink as
-soon as they are safe to deliver.
+that gives its draft length per round (fixed, or the APSD short/long
+choice under ``adaptive``); under ``par_mode="wdos"`` it carries its open
+draft window across engine steps, and under ``spec_mode="tree"`` its draft
+tree.  ``history`` logs (mode, drafted, accepted, emitted) per committed
+round.  Tokens stream to an optional sink as soon as they are safe to
+deliver.
 
 A sampled request (``temperature > 0``) draws all its randomness from its
 own key streams: keys derive from its seed and are indexed by (stream,
 round, position), never drawn from a shared counter, so its tokens do not
 depend on the batch it is scheduled into.  ``rounds`` increments only when
-a round commits.
+a round commits, so fused and two-phase rounds index the same keys.
 
 ``SamplingParams.stop`` is enforced at commit: each committed token's text
 extends the request's generated text, the text is scanned for the earliest
@@ -22,15 +25,15 @@ request retires and frees its pages as a length-finished one does.  A
 token whose text could still begin a match is held back from delivery
 until later text proves it safe, so a delivered token is never retracted.
 
-The reference's latency timestamps, round history and fused-PAR phase
-state are not ported yet (nothing in the port reads them).
+The reference's latency timestamps are not ported yet (nothing in the port
+reads them).
 """
 from __future__ import annotations
 
 import bisect
 import dataclasses
 import enum
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -55,8 +58,9 @@ class RequestState(enum.Enum):
 
 @dataclasses.dataclass
 class DraftController:
-    """Per-request draft length (the APSD mode state machine).  The port's
-    engine builds it with short_dl == long_dl: a fixed draft length."""
+    """Per-request draft length (the APSD mode state machine): long_dl in
+    PAR mode, short_dl in NONPAR.  A fixed draft length is short_dl ==
+    long_dl."""
 
     short_dl: int
     long_dl: int
@@ -94,6 +98,17 @@ class Request:
     rounds: int = 0  # committed rounds: the key streams' round index
     drafted: int = 0
     accepted: int = 0
+    # (controller mode, drafted, accepted, emitted) per committed round
+    history: List[Tuple[int, int, int, int]] = dataclasses.field(default_factory=list)
+
+    # -- fused window state (par_mode="wdos"): pending_dl is the open
+    # window's length (None between windows); pending holds the proposals so
+    # far (their draft KV sits at d_seq.length + [0, len(pending))), and
+    # pending_q the draft logits rows a sampled request's accept rule needs.
+    # Carried across engine steps.
+    pending_dl: Optional[int] = None
+    pending: List[int] = dataclasses.field(default_factory=list)
+    pending_q: List[np.ndarray] = dataclasses.field(default_factory=list)
 
     # -- tree phase state (spec_mode="tree"): tree_dl is the round's target
     # depth (None between rounds); tree_nodes[i] / tree_parents[i] are the
@@ -153,6 +168,29 @@ class Request:
         """Worst-case cache length: committed-1 positions plus a full
         draft/verify window (+1 for the verify bonus / draft straggler)."""
         return self.prompt.shape[0] + self.max_new_tokens + max_dl
+
+    def begin_window(self, dl: int) -> None:
+        """Open a fresh draft window of ``dl`` proposals (fused rounds)."""
+        if dl < 1:
+            raise ValueError(f"draft window must be >= 1, got {dl}")
+        self.clear_window()
+        self.pending_dl = dl
+
+    def clear_window(self) -> None:
+        self.pending_dl = None
+        self.pending = []
+        self.pending_q = []
+
+    @property
+    def window_full(self) -> bool:
+        """Ready to verify: every proposal of the open window is drafted."""
+        return self.pending_dl is not None and len(self.pending) >= self.pending_dl
+
+    @property
+    def draft_tip(self) -> int:
+        """The token the next draft step feeds: the window's last proposal,
+        or the committed tip while the window is empty."""
+        return int(self.pending[-1]) if self.pending else self.last_tok
 
     def begin_tree(self, dl: int) -> None:
         """Open a fresh draft tree targeting depth `dl`."""
@@ -265,11 +303,15 @@ class Request:
         self._delta_mark = hi
         return [int(t) for t in self.out[lo:hi]]
 
+    def record_round(self, mode: int, drafted: int, accepted: int, emitted: int) -> None:
+        self.history.append((mode, drafted, accepted, emitted))
+
     def finish(self, reason: str = "length") -> None:
         self.state = RequestState.FINISHED
         if self.finish_reason is None:
             self.finish_reason = reason
         self.out = self.out[: self.max_new_tokens]
+        self.clear_window()
         self.clear_tree()
         self._gen_text = ""  # the stop-matching buffers are dead weight now
         self._text_ends = []

@@ -92,13 +92,13 @@ def test_abort_returns_pages(pairs):
     assert len(eng.output_tokens(rids[1])) == MAX_TOKENS
 
 
-def test_unported_settings_raise(pairs):
+@pytest.mark.parametrize("cfg", [dict(prefix_cache=True), dict(profile_every_n=2)],
+                         ids=["prefix_cache", "profile_every_n"])
+def test_unported_settings_raise(pairs, cfg):
     """The EngineConfig features the port does not carry yet are refused at
-    construction (sampled requests and stop strings are served: see
-    tests/test_torch_sampled_engine.py)."""
+    construction (adaptive drafts and WDOS rounds are served: see
+    tests/test_torch_wdos.py)."""
     _, (tt, td) = pairs
-    for cfg in (EngineConfig(par_mode="wdos"), EngineConfig(spec_mode="tree", par_mode="wdos"),
-                EngineConfig(prefix_cache=True), EngineConfig(adaptive=True),
-                EngineConfig(profile_every_n=2)):
-        with pytest.raises(NotImplementedError):
-            Engine(tt, td, cfg, device="cpu")
+    assert EngineConfig(**cfg).unported() == [f"{k}={v!r}" for k, v in cfg.items()]
+    with pytest.raises(NotImplementedError):
+        Engine(tt, td, EngineConfig(**cfg), device="cpu")

@@ -53,6 +53,18 @@ def to_numpy_tree(tree):
 
 
 @pytest.fixture(scope="module")
+def one_thread():
+    """One intra-op torch thread for a module that requests it (the engine
+    parity files): the smoke pair's ops are too small to gain from more,
+    and with several test workers at once the thread pools' barriers cost
+    more than the ops."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
 def target():
     params, _ = jlm.init_lm(jax.random.PRNGKey(0), J_TLM, tp=1)
     qp = jqlm.quantize_dense_lm(params, J_TLM, bits=4, rotate=True)

@@ -30,7 +30,7 @@ pytest.importorskip("jax")  # the reference side of every test here
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
-from test_torch_models import to_numpy_tree  # noqa: E402
+from test_torch_models import one_thread, to_numpy_tree  # noqa: E402,F401
 
 from repro.core import apsd as japsd  # noqa: E402
 from repro.core import speculative as jspec  # noqa: E402
@@ -47,6 +47,7 @@ from repro_torch.serving import engine as tengine  # noqa: E402
 from repro_torch.serving import quantized_lm as tqlm  # noqa: E402
 from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams, ServingModel  # noqa: E402
 
+pytestmark = pytest.mark.usefixtures("one_thread")
 S_MAX = 128
 MAX_TOKENS = 24
 

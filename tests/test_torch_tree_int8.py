@@ -21,7 +21,7 @@ pytest.importorskip("jax")  # the reference side of every test here
 
 import jax
 import jax.numpy as jnp
-from test_torch_models import BVQ_ATOL, ROW_EXACT, _paged_cache, to_numpy_tree
+from test_torch_models import BVQ_ATOL, ROW_EXACT, _paged_cache, one_thread, to_numpy_tree  # noqa: F401,E501
 
 from repro.configs.paper_pair import DLM_SMOKE as J_DLM, TLM_SMOKE as J_TLM
 from repro.core import quantization as jquant
@@ -39,6 +39,7 @@ from repro_torch.serving import quantized_lm as tqlm
 from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams, ServingModel
 from repro_torch.serving.paged_cache import kv_quantize_np
 
+pytestmark = pytest.mark.usefixtures("one_thread")
 S_MAX = 128
 MAX_TOKENS = 10
 TREE = dict(spec_mode="tree", tree_budget=6, spec_branches=2)
