@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100 and check it end to end.
 
     python3 chip_smoke.py             # every phase (what a GPU check runs)
-    python3 chip_smoke.py --profile   # also profile a few rounds of four paths
+    python3 chip_smoke.py --profile   # also profile a few rounds of seven paths
 
 Phases, in order (any failure exits non-zero before the final line):
 
@@ -74,23 +74,46 @@ Phases, in order (any failure exits non-zero before the final line):
 12. Self-draft path: the paper target drafting for itself under
    ``adaptive=True``, greedy, one request admitted per step, two-phase and
    then WDOS: the controllers must reach PAR (a long_dl window in each
-   run), the rotation runs once per layer of every forward, and each row
-   equals the main path's except at a near-tie.
-13. Card against CPU at smoke size: one smoke pair built on the CPU from a
+   run), the rotation runs once per layer of every forward, every proposal
+   is accepted (acceptance 1.0: a row's bits do not depend on the row
+   count), and each row equals the main path's except at a near-tie.
+13. Prefix path: the pair under ``EngineConfig(prefix_cache=True)``, a
+   160-token system prompt S: the donor S + 16 tokens alone, then nine
+   followers at once (six S + a suffix, a fork S[:150] + 20 tokens, a full
+   hit S[:130], a repeat of the donor), 32 tokens each, after its twin
+   (the same arrivals, cache off): rows equal the twin's except at a
+   near-tie, 9 hits, the tokens saved the workload implies, >= 2 copies
+   on write, and every page the tree pinned after the donor bitwise
+   unchanged after the followers.  Prefill wall per request (miss, tail
+   hit, full hit) and the mirrors' copy bytes and ms, with and without.
+14. Prefix mixed tree path: the same under ``kv_quant="mixed",
+   spec_mode="tree"``, the donor once per kind, the followers alternating.
+15. Byte budgets: ``pool_bytes`` at 4 and 1 GiB, pages per kind and the
+   requests resident after one step with 16 queued, fp against int8.
+16. Dense path: the bf16 pair at the paper's widths (``build_paper_pair(
+   quantize=False)``, 6.7 B target parameters) at ``EngineConfig()``, the
+   main path's prompts: paged attention launches, no matmul or rotation
+   kernel does, and each row equals the target-only greedy decode through
+   the paged path except at a near-tie (the dense-cache decode is
+   compared and reported, as on the main path).  The pair is freed after
+   it.
+17. Card against CPU at smoke size: one smoke pair built on the CPU from a
    fixed seed, copied to the card; the same requests through the port on
-   cuda (kernels) and on cpu (plain versions) with five engines (greedy
-   chain, greedy mixed-KV tree, sampled chain, sampled mixed-KV tree, and
-   a staggered adaptive WDOS chain with two sampled requests) must give
-   the same tokens, unless the first divergence is shown to be a
-   near-tie: of the target's top-2 logits for a greedy row, or, for a
+   cuda (kernels) and on cpu (plain versions) with seven engines (greedy
+   chain, greedy mixed-KV tree, sampled chain, sampled mixed-KV tree, a
+   staggered adaptive WDOS chain with two sampled requests, and the prefix
+   cache on the reference's prefix workload, fp chain and mixed-KV chain)
+   must give the same tokens, unless the first divergence is shown to be
+   a near-tie: of the target's top-2 logits for a greedy row, or, for a
    sampled row, a host decision taken from logit rows that differ by at
-   most NEAR_TIE between the devices.
+   most NEAR_TIE between the devices; the prefix stats must be equal.
 
 Each path prints its tokens/s, rounds, target forwards per emitted token,
 device-to-host copies per round and, on a WDOS engine, its fused-slot
 summary; ``--profile`` adds a torch.profiler breakdown (device busy share,
-kernels, launches and copies, host time) of three rounds of the main,
-tree, sampled, sampled tree, WDOS and WDOS tree paths.
+kernels, launches and copies, host time, launches per target forward) of
+three rounds of the main, tree, sampled, sampled tree, WDOS, WDOS tree
+and dense paths.
 
 The last two lines are the kernels summary (JSON) and the result line
 ``{"ok": true, "device": {...}}``.  Weights are random, made from SEED.
@@ -98,6 +121,7 @@ The last two lines are the kernels summary (JSON) and the result line
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -788,6 +812,35 @@ class _HostClock:
             setattr(owner, name, f)
 
 
+class _ForwardCount:
+    """Calls of the forwards (serving/engine.py's ``_FORWARDS``) whose model
+    config is ``cfg``, counted by patching them for the runs inside the
+    context: the target forwards of a run (prefills and, on a mixed-KV
+    engine, one per store of each dispatch)."""
+
+    def __init__(self, cfg):
+        self.cfg, self.calls = cfg, 0
+
+    def __enter__(self):
+        from repro_torch.serving import engine as E
+
+        self._saved = dict(E._FORWARDS)
+        for mode, f in self._saved.items():
+            E._FORWARDS[mode] = self._counted(f)
+        return self
+
+    def _counted(self, f):
+        def counted(params, cfg, *args, **kwargs):
+            self.calls += cfg is self.cfg
+            return f(params, cfg, *args, **kwargs)
+        return counted
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import engine as E
+
+        E._FORWARDS.update(self._saved)
+
+
 def _run(eng, prompts, sps, stagger=False):
     """``eng.run(prompts, sps)``, or with ``stagger`` one request added per
     ``step()`` before the drain (the arrival pattern that puts requests'
@@ -819,7 +872,7 @@ def _drive(phase, eng, prompts, sps, dev, needs=None, stagger=False):
     _lib.launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with _HostClock() as clock:
+    with _HostClock() as clock, _ForwardCount(eng.target.cfg) as fwd:
         outs, summary = _run(eng, prompts, sps, stagger)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -827,8 +880,7 @@ def _drive(phase, eng, prompts, sps, dev, needs=None, stagger=False):
     outs = [o.tolist() for o in outs]
     emitted = sum(len(o) for o in outs)
     t_stats, d_stats = eng.pool_stats()
-    # one block_rotate launch per layer of each target forward
-    t_forwards = launches.get("block_rotate", 0) / eng.target.cfg.n_layers
+    t_forwards = fwd.calls
     emit(phase=phase, requests=len(outs), prompt_lens=[len(p) for p in prompts],
          staggered=stagger, adaptive=eng.cfg.adaptive, par_mode=summary["par_mode"],
          emitted=emitted, wall_s=wall, tokens_per_s=emitted / wall, rounds=summary["rounds"],
@@ -1108,6 +1160,14 @@ def phase_self_draft_path(dev, pair, fp_outs):
              history=[[list(map(int, h)) for h in hist] for hist in windows])
         if long_rounds <= 0:
             raise AssertionError(f"{phase}: no controller reached PAR (no long_dl window)")
+        # the draft is the target: its one-token step and the window verify
+        # compute each row with the same bits (kernels and torch ops alike
+        # are gated row-count independent), so every proposal is accepted
+        acceptance = eng.summary()["acceptance_rate"]
+        emit(phase=f"{phase}_acceptance", acceptance_rate=acceptance)
+        if acceptance != 1.0:
+            raise AssertionError(f"{phase}: acceptance {acceptance} < 1 with the target "
+                                 f"drafting for itself")
         _compare_decisions(phase, target, prompts, sps, outs, fp_outs, None, None,
                            ["none"] * len(prompts))
 
@@ -1155,7 +1215,8 @@ def phase_profile(dev, pair, path, cfg, sps, rounds: int = 3, stagger=False) -> 
     round (their ratio is the device's busy share; the profiler adds host
     overhead, so the share is a lower bound), each port kernel's device ms
     and launches per round, and the top entries by device and by host
-    time."""
+    time, and ``cudaLaunchKernel`` calls per target forward (all of a
+    round's launches, the draft's included, over its target forwards)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.serving.engine import Engine
@@ -1170,7 +1231,8 @@ def phase_profile(dev, pair, path, cfg, sps, rounds: int = 3, stagger=False) -> 
         eng.step()
         eng.step()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, \
+            _ForwardCount(target.cfg) as fwd:
         t0 = time.perf_counter()
         for _ in range(rounds):
             eng.step()
@@ -1194,6 +1256,8 @@ def phase_profile(dev, pair, path, cfg, sps, rounds: int = 3, stagger=False) -> 
              for key in ("aten::roll", "aten::cat", "cudaLaunchKernel", "Memcpy DtoH")}
     calls["Memcpy DtoH (any)"] = sum(e.count for e in events if "DtoH" in e.key) // rounds
     emit(phase="profile", path=path, rounds=rounds, staggered=stagger,
+         target_forwards_per_round=fwd.calls / rounds,
+         launches_per_target_forward=calls["cudaLaunchKernel"] * rounds / max(fwd.calls, 1),
          wall_ms_per_round=wall * 1e3 / rounds,
          device_ms_per_round=device_ms / rounds, device_busy_share=device_ms / (wall * 1e3),
          port_kernels_ms_per_round={k: list(v) for k, v in port.items()},
@@ -1358,8 +1422,332 @@ def phase_card_vs_cpu(dev, seed):
         emit(phase="card_vs_cpu", engine=name,
              equal=f"{len(prompts) - len(ties)}/{len(prompts)}", divergences=ties)
         bad += [dict(t, engine=name) for t in ties if not t["near_tie"]]
+    # the prefix cache on the reference's workload (tests/test_prefix_cache.py)
+    # at page_size 8: the donor first (once per kind), then the followers, a
+    # fork that copies on write, a full hit and a repeat (under mixed KV the
+    # kinds alternate, int8 first: the int8 causal body over shared pages);
+    # the prefix stats are host bookkeeping and must be equal
+    donor = np.arange(7, 48, dtype=np.int32)
+    followers = [np.concatenate([donor[:33], np.arange(200, 208, dtype=np.int32)]),
+                 donor[:34].copy(), donor.copy()]
+    for name, kinds in (("prefix_chain", ["none"]), ("prefix_mixed_chain", ["int8", "none"])):
+        cfg = EngineConfig(max_batch=4, page_size=8, prefix_cache=True,
+                           kv_quant="mixed" if len(kinds) > 1 else "none")
+        sps = [SamplingParams(max_tokens=32, kv_quant=k) for k in kinds]
+        sps += [SamplingParams(max_tokens=32, kv_quant=kinds[i % len(kinds)])
+                for i in range(len(followers))]
+        reqs = [donor] * len(kinds) + followers
+        rows, stats = [], []
+        for t, d, where in ((t_gpu, d_gpu, dev), (t_cpu, d_cpu, "cpu")):
+            eng = Engine(t, d, cfg, device=where)
+            first, _ = eng.run(reqs[:len(kinds)], sps[:len(kinds)])
+            rest, summary = eng.run(reqs[len(kinds):], sps[len(kinds):])
+            rows.append([o.tolist() for o in first + rest])
+            stats.append(summary["prefix_cache"])
+        ties = _divergences(t_cpu, reqs, sps, rows[0], rows[1], None, None, [None] * len(reqs))
+        emit(phase="card_vs_cpu", engine=name, equal=f"{len(reqs) - len(ties)}/{len(reqs)}",
+             divergences=ties, prefix_cache=stats[0], prefix_stats_equal=stats[0] == stats[1])
+        bad += [dict(t, engine=name) for t in ties if not t["near_tie"]]
+        if stats[0] != stats[1] or stats[0]["hits"] != len(followers):
+            bad.append({"engine": name, "prefix_cache": stats})
     if bad:
         raise AssertionError(f"card and CPU tokens differ beyond a near-tie: {bad}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 14-17: the prefix cache, byte budgets and the dense pair
+# ---------------------------------------------------------------------------
+
+
+def _prefix_workload(vocab, seed, ps=16):
+    """A 160-token system prompt S (10 full pages); the donor S + 16 tokens;
+    nine followers: six S + a distinct 8-40-token suffix, a fork S[:150] +
+    20 other tokens (its block 9 maps partially: copy on write), a full hit
+    S[:130] (every row but the tip shared, on a partial page: copy on
+    write, no forward) and an exact repeat of the donor.  Every suffix
+    starts with its own token, unlike the donor's 161st and S[150], so no
+    follower shares more with another than with the donor, and each one's
+    match is min(common prefix with the donor, plen - 1, the donor's 160
+    full-block tokens).  Returns (donor, followers, tokens_saved implied)."""
+    from repro_torch.serving.prefix_cache import _lcp
+
+    rng = np.random.RandomState(seed + 7)
+
+    def draw(n):
+        return rng.randint(0, vocab, size=n).astype(np.int32)
+
+    s = draw(160)
+    donor = np.concatenate([s, draw(16)])
+    firsts = {int(donor[160]), int(s[150])}
+    suffixes = []
+    while len(suffixes) < 7:
+        suf = draw(20 if len(suffixes) == 6 else int(rng.randint(8, 41)))
+        if int(suf[0]) not in firsts:
+            firsts.add(int(suf[0]))
+            suffixes.append(suf)
+    followers = [np.concatenate([s, suf]) for suf in suffixes[:6]]
+    followers += [np.concatenate([s[:150], suffixes[6]]), s[:130].copy(), donor.copy()]
+    cached = (len(donor) - 1) // ps * ps
+    implied = sum(min(_lcp(f, donor), len(f) - 1, cached) for f in followers)
+    return donor, followers, implied
+
+
+class _PrefillClock:
+    """Host wall of each request's prefill (both pools; after a
+    ``torch.cuda.synchronize()`` on each side of each call), by kind: a
+    miss, a tail hit (the seeded extend of the unshared tail) or a full
+    hit (no forward); and the prefix mirrors' device-to-host and
+    host-to-device bytes and ms (each copy bracketed by synchronizes).
+    Patched into serving/engine.py for the runs inside the context."""
+
+    def __enter__(self):
+        from repro_torch.serving import engine as E
+
+        self.prefill, self.mirror = {}, {"d2h": [0, 0.0], "h2d": [0, 0.0]}
+        self._saved = [(E.Engine, "_prefill_into", E.Engine._prefill_into),
+                       (E, "_pull_mirror", E._pull_mirror), (E, "_push_mirror", E._push_mirror)]
+        prefill, pull, push = (f for _, _, f in self._saved)
+
+        def timed(f, record):
+            def run(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = f(*args)
+                torch.cuda.synchronize()
+                record(args, out, time.perf_counter() - t0)
+                return out
+            return run
+
+        def rec_prefill(args, out, dt):
+            req = args[1]
+            m = req.prefix_match.tokens_matched if req.prefix_match is not None else 0
+            kind = "miss" if m == 0 else "full_hit" if m >= len(req.prompt) - 1 else "tail_hit"
+            entry = self.prefill.setdefault(req.rid, [kind, 0.0])
+            entry[1] += dt
+
+        def rec_mirror(way, tensors):
+            def rec(args, out, dt):
+                self.mirror[way][0] += sum(t.numel() * t.element_size()
+                                           for t in tensors(args, out))
+                self.mirror[way][1] += dt
+            return rec
+
+        E.Engine._prefill_into = timed(prefill, rec_prefill)
+        E._pull_mirror = timed(pull, rec_mirror("d2h", lambda args, out: out))
+        # _push_mirror(match, role, k_dst, v_dst) fills rows [0, m) of both
+        E._push_mirror = timed(push, rec_mirror("h2d", lambda args, out: [
+            a[:, :args[0].tokens_matched] for a in args[2:]]))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, f in self._saved:
+            setattr(owner, name, f)
+
+    def report(self):
+        by_kind = {}
+        for kind, sec in self.prefill.values():
+            by_kind.setdefault(kind, []).append(sec * 1e3)
+        return {
+            "prefill_ms_by_kind": {k: {"requests": len(v), "mean": float(np.mean(v)),
+                                       "median": float(np.median(v)), "each": v}
+                                   for k, v in sorted(by_kind.items())},
+            "mirror": {way: {"bytes": b, "ms": sec * 1e3} for way, (b, sec) in self.mirror.items()},
+        }
+
+
+def _pinned_rows(eng, pinned):
+    """Device copies of the pool rows of ``pinned`` ({kind: {role: pages}})."""
+    stores = {"target": eng._t_stores, "draft": eng._d_stores}
+    return {(kind, role, name): a[:, pages].clone()
+            for kind, by_role in pinned.items() for role, pages in by_role.items()
+            for name, a in stores[role][kind].items()}
+
+
+def _prefix_run(phase, dev, pair, cfg, kinds, needs):
+    """The prefix workload on one engine of ``cfg``: the donor alone (once
+    per kind of ``kinds``), then the nine followers at once (kinds
+    alternating).  Counters are zeroed before the followers and read after
+    them.  Returns (follower rows, launches, engine, prefill clock,
+    the pages the tree pinned after the donor, their rows before and after
+    the followers, the followers and their sampling params)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.serving.engine import Engine, SamplingParams
+
+    target, draft, _ = pair
+    donor, followers, _ = _prefix_workload(target.cfg.vocab, SEED)
+    eng = Engine(target, draft, cfg, device=dev)
+    with _PrefillClock() as clock:
+        eng.run([donor] * len(kinds), [SamplingParams(max_tokens=32, kv_quant=k) for k in kinds])
+        pinned = eng._prefix.pinned_pages() if eng._prefix is not None else {}
+        before = _pinned_rows(eng, pinned)
+        sps = [SamplingParams(max_tokens=32, kv_quant=kinds[i % len(kinds)])
+               for i in range(len(followers))]
+        outs, launches = _drive(phase, eng, followers, sps, dev, needs=needs)
+    return outs, launches, eng, clock, pinned, before, _pinned_rows(eng, pinned), followers, sps
+
+
+def _phase_prefix(phase, dev, pair, cfg, kinds, needs):
+    """One prefix path against its twin (the same arrivals with the cache
+    off, run first in the same call): rows equal except at a near-tie,
+    every follower a hit, tokens saved as the workload implies, at least
+    two copies on write, and every page the tree pinned after the donor
+    bitwise unchanged when the followers drained."""
+    target = pair[0]
+    twin_cfg = dataclasses.replace(cfg, prefix_cache=False)
+    twin, _, _, twin_clock, *_ = _prefix_run(f"{phase}_twin", dev, pair, twin_cfg, kinds,
+                                                    needs)
+    outs, launches, eng, clock, pinned, before, after, followers, sps = _prefix_run(
+        phase, dev, pair, cfg, kinds, needs)
+    st = eng.summary()["prefix_cache"]
+    _, _, implied = _prefix_workload(target.cfg.vocab, SEED)
+    unchanged = before.keys() == after.keys() and all(torch.equal(before[k], after[k])
+                                                      for k in before)
+    emit(phase=f"{phase}_report", prefix_cache=st, tokens_saved_implied=implied,
+         pinned_pages=pinned, pinned_rows_bitwise_unchanged=unchanged,
+         with_cache=clock.report(), without_cache=twin_clock.report())
+    kinds_of = [sp.kv_quant for sp in sps]
+    _compare_decisions(phase, target, followers, sps, outs, twin, None, None, kinds_of)
+    bad = []
+    if st["hits"] != len(followers):
+        bad.append(f"hits {st['hits']} != {len(followers)}")
+    if st["tokens_saved"] != implied:
+        bad.append(f"tokens_saved {st['tokens_saved']} != {implied}")
+    if st["cow_copies"] < 2:
+        bad.append(f"cow_copies {st['cow_copies']} < 2")
+    if not before or not unchanged:
+        bad.append(f"pinned pages written (or none pinned: {len(before)} rows)")
+    if bad:
+        raise AssertionError(f"{phase}: " + "; ".join(bad))
+    return launches
+
+
+def phase_prefix_path(dev, pair):
+    """The W4A8 + BVQ pair under ``EngineConfig(prefix_cache=True)``."""
+    from repro_torch.serving.engine import EngineConfig
+
+    return _phase_prefix("prefix_path", dev, pair, EngineConfig(prefix_cache=True), [None],
+                         MAIN_KERNELS)
+
+
+def phase_prefix_mixed_tree_path(dev, pair):
+    """The same workload under ``EngineConfig(prefix_cache=True, kv_quant=
+    "mixed", spec_mode="tree")``: the donor once per kind, the followers
+    alternating kinds (fp first).  Both tree bodies launch (tree windows
+    never run the int8 causal body, K5; the card-vs-CPU prefix engines do,
+    over shared int8 pages)."""
+    from repro_torch.serving.engine import EngineConfig
+
+    cfg = EngineConfig(prefix_cache=True, kv_quant="mixed", spec_mode="tree")
+    return _phase_prefix("prefix_mixed_tree_path", dev, pair, cfg, ["none", "int8"],
+                         ["w4a8_matmul", "block_rotate", "bvq_matmul", "paged_attention_tree",
+                          "paged_attention_int8_tree"])
+
+
+def phase_pool_bytes(dev, pair):
+    """``EngineConfig(pool_bytes=...)`` at 4 GiB and 1 GiB: each pool's
+    pages per storage kind, and the requests resident after one step with
+    16 queued (200-token prompts, 50 tokens each: 16 pages at page_size 16
+    per request), fp against int8."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    target, draft, _ = pair
+    prompts = _prompts(16, 200, 200, target.cfg.vocab, SEED + 3)
+    rows = []
+    for budget in (4 << 30, 1 << 30):
+        for kind in ("none", "int8"):
+            eng = Engine(target, draft, EngineConfig(max_batch=16, pool_bytes=budget,
+                                                     kv_quant=kind), device=dev)
+            for p in prompts:
+                eng.add_request(p, SamplingParams(max_tokens=50))
+            eng.step()
+            t_st, d_st = eng.pool_stats()
+            rows.append(dict(pool_bytes=budget, kv_quant=kind, target_pages=t_st.num_pages,
+                             draft_pages=d_st.num_pages, resident=eng.num_active(),
+                             target_bytes_per_token=t_st.bytes_per_token))
+            del eng
+            torch.cuda.empty_cache()
+    emit(phase="pool_bytes", rows=rows)
+    for budget in (4 << 30, 1 << 30):
+        fp, i8 = (r for r in rows if r["pool_bytes"] == budget)
+        if i8["target_pages"] <= fp["target_pages"] or i8["resident"] < fp["resident"]:
+            raise AssertionError(f"pool_bytes {budget}: int8 holds no more than fp: {fp} {i8}")
+
+
+def _paged_greedy(target, prompt, n):
+    """Target-only greedy decode through the engine's own paged path: the
+    dense prefill of prompt[:-1] scattered into a one-request fp store,
+    then one-token paged steps, over a table as wide as an engine's at
+    ``max_model_len = s_max``.  Every op of a forward gives a row the same
+    bits at any row count, so a lossless greedy speculative decode must
+    reproduce these tokens exactly."""
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.paged_cache import device_pool_store, pages_for
+
+    dev = target.device
+    pool = E._pool_for(target, E.EngineConfig(max_batch=1), [target.s_max])
+    store = device_pool_store(pool, dev, "none")
+    table = torch.arange(pages_for(target.s_max, pool.page_size), dtype=torch.int32,
+                         device=dev)[None]
+    tokens = torch.as_tensor(prompt, dtype=torch.int32, device=dev)[None]
+    _, cache = E.make_interface(target).prefill(target.params, tokens[:, :-1])
+    E._scatter_prefill(store, cache["attn"]["k"][:, 0], cache["attn"]["v"][:, 0], table[0],
+                       tokens.shape[1] - 1)
+    step, cur, out = E._make_paged_step(target), tokens[:, -1:], []
+    for i in range(n):
+        length = torch.tensor([tokens.shape[1] - 1 + i], dtype=torch.int32, device=dev)
+        cur = torch.argmax(step(target.params, cur, store, table, length)[:, -1], dim=-1)
+        cur = cur.to(torch.int32).reshape(1, 1)
+        out.append(int(cur))
+    return out
+
+
+def phase_dense_path(dev, prompts, profile=False):
+    """The dense pair at the paper's widths (``build_paper_pair(quantize=
+    False)``: a bf16 LLaMA2-7B-width target, 32 layers, and a bf16
+    LLaMA-68M-width draft) served at ``EngineConfig()``, the main path's
+    prompts, 32 tokens each: paged attention launches and no matmul or
+    rotation kernel does; each row equals the target-only greedy decode
+    through the paged path (``_paged_greedy``) except at a near-tie.  The
+    dense-cache decode (``greedy_reference``: bf16 attention operands
+    where the paged kernel computes in f32) is compared and reported, as
+    on the main path.  Frees the pair before it returns."""
+    from repro_torch.launch.serve import build_paper_pair, greedy_reference
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    t0 = time.perf_counter()
+    target, draft = build_paper_pair(seed=SEED, s_max=256, quantize=False, device=dev)
+    torch.cuda.synchronize()
+    params = sum(t.numel() for t in _tensors(target.params))
+    print(f"built dense paper pair in {time.perf_counter() - t0:.1f} s "
+          f"(target {params} parameters, {torch.cuda.memory_allocated(dev)} bytes allocated)")
+    sp = SamplingParams(max_tokens=32)
+    outs, launches = _drive("dense_path", Engine(target, draft, EngineConfig(), device=dev),
+                            prompts, sp, dev, needs=["paged_attention"])
+    quantized = [k for k in ("w4a8_matmul", "bvq_matmul", "block_rotate") if launches.get(k)]
+    if quantized:
+        raise AssertionError(f"dense path launched {quantized}")
+    dense = _compare_rows(target, prompts, outs,
+                          [greedy_reference(target, p, sp.max_tokens) for p in prompts],
+                          [None] * len(prompts))
+    emit(phase="dense_path_dense_cache_check", equal=f"{sum(r['equal'] for r in dense)}"
+         f"/{len(dense)}", rows=dense, gated=False)
+    want = [_paged_greedy(target, p, sp.max_tokens) for p in prompts]
+    _compare_decisions("dense_path", target, prompts, [sp] * len(prompts), outs, want, None,
+                       None, ["none"] * len(prompts))
+    if profile:
+        phase_profile(dev, (target, draft, prompts), "dense_path", EngineConfig(),
+                      [sp] * len(prompts))
+    del target, draft
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _tensors(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _tensors(v)]
+    return [tree]
 
 
 # ---------------------------------------------------------------------------
@@ -1368,7 +1756,7 @@ def phase_card_vs_cpu(dev, seed):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="after the paths, profile a few rounds of six of them "
+                    help="profile a few rounds of seven of the paths "
                          "(torch.profiler)")
     args = ap.parse_args(argv)
 
@@ -1402,6 +1790,9 @@ def main(argv=None) -> int:
                                          sampled_tree_log)
     del sampled_tree_log
     phase_self_draft_path(dev, pair, fp_outs)
+    launches["prefix_path"] = phase_prefix_path(dev, pair)
+    launches["prefix_mixed_tree_path"] = phase_prefix_mixed_tree_path(dev, pair)
+    phase_pool_bytes(dev, pair)
     if args.profile:
         from repro_torch.serving.engine import EngineConfig, SamplingParams
 
@@ -1416,7 +1807,10 @@ def main(argv=None) -> int:
                       wdos_sps, stagger=True)
         phase_profile(dev, pair, "wdos_tree_path", wdos_tree_cfg, sampled_tree_sps,
                       stagger=True)
+    prompts = pair[2]
     del pair
+    torch.cuda.empty_cache()
+    launches["dense_path"] = phase_dense_path(dev, prompts, profile=args.profile)
     phase_card_vs_cpu(dev, SEED)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": [
@@ -1428,6 +1822,7 @@ def main(argv=None) -> int:
             "ms": summary[name]["kernel_ms"], "plain_ms": summary[name]["plain_ms"],
             "bound_ms": summary[name]["bound_ms"], "bound_by": summary[name]["bound_by"],
             "library_ms": summary[name]["library_ms"],
+            "launches_by_path": {path: n.get(name, 0) for path, n in launches.items()},
         }
         for name, (src, replaces) in KERNELS.items()
     ]}))

@@ -5,8 +5,11 @@ reference decode (torch counterpart of repro/launch/serve.py).
 with the LRU rotation, DLM_SMOKE compressed with BVQ); ``build_paper_pair``
 builds it at the paper's widths (LLaMA2-7B target, LLaMA-68M draft),
 initialising and quantizing the target one layer at a time so its
-full-precision weights are never resident together.  Weights are random,
-drawn from a ``torch.Generator`` seeded by ``seed`` on ``device``.
+full-precision weights are never resident together.  With
+``quantize=False`` both build the dense pair instead: the same random
+weights, served in the model dtype by ``lm.apply_lm`` (``mode="bf16"``).
+Weights are random, drawn from a ``torch.Generator`` seeded by ``seed`` on
+``device``.
 """
 from __future__ import annotations
 
@@ -34,38 +37,50 @@ def _generator(device, seed: int) -> torch.Generator:
     return torch.Generator(device=torch.device(device)).manual_seed(seed)
 
 
+def _serving_pair(tcfg, tparams, dcfg, dparams, quantize: bool, s_max: int,
+                  device) -> Tuple[ServingModel, ServingModel]:
+    """The ServingModels over a target (already W4A8 when ``quantize``) and
+    a dense draft, compressed here with BVQ when ``quantize``."""
+    if quantize:
+        dparams = qlm.bvq_compress_lm(dparams, dcfg, PAIR_BVQ, _generator(device, _BVQ_SEED))
+    t_mode, d_mode = ("w4a8", "bvq") if quantize else ("bf16", "bf16")
+    return (
+        ServingModel(cfg=tcfg, params=tparams, mode=t_mode, s_max=s_max, device=device),
+        ServingModel(cfg=dcfg, params=dparams, mode=d_mode, s_max=s_max, device=device),
+    )
+
+
 def build_pair(seed: int = 0, s_max: int = 256, quantize: bool = True,
                device="cuda") -> Tuple[ServingModel, ServingModel]:
-    """(target ServingModel, draft ServingModel) at smoke scale."""
-    if not quantize:
-        raise NotImplementedError("the port serves the quantized pair (w4a8 target, bvq draft)")
+    """(target ServingModel, draft ServingModel) at smoke scale: the W4A8
+    target and BVQ draft, or with ``quantize=False`` the dense pair."""
     gen = _generator(device, seed)
     tparams = lm.init_lm(gen, TLM_SMOKE, device)
     dparams = lm.init_lm(gen, DLM_SMOKE, device)
-    tq = qlm.quantize_dense_lm(tparams, TLM_SMOKE)
-    dq = qlm.bvq_compress_lm(dparams, DLM_SMOKE, PAIR_BVQ, _generator(device, _BVQ_SEED))
-    return (
-        ServingModel(cfg=TLM_SMOKE, params=tq, mode="w4a8", s_max=s_max, device=device),
-        ServingModel(cfg=DLM_SMOKE, params=dq, mode="bvq", s_max=s_max, device=device),
-    )
+    if quantize:
+        tparams = qlm.quantize_dense_lm(tparams, TLM_SMOKE)
+    return _serving_pair(TLM_SMOKE, tparams, DLM_SMOKE, dparams, quantize, s_max, device)
 
 
-def build_paper_pair(seed: int = 0, s_max: int = 256,
+def build_paper_pair(seed: int = 0, s_max: int = 256, quantize: bool = True,
                      device="cuda") -> Tuple[ServingModel, ServingModel]:
-    """The pair at the paper's widths and depths (all 32 target layers)."""
+    """The pair at the paper's widths and depths (all 32 target layers),
+    the target made one layer at a time on ``device``: quantized as it is
+    made, or kept in bf16 with ``quantize=False`` (6.7 B parameters,
+    ~13.5 GB)."""
     tcfg = TLM
     gen = _generator(device, seed)
     emb = lm.init_embed(gen, tcfg, device)
-    tq = qlm.quantize_embed(emb["embed"], emb["final_norm"], tcfg)
-    del emb
-    tq["layers"] = [qlm.quantize_layer(lm.init_layer(gen, tcfg, device), tcfg)
-                    for _ in range(tcfg.n_layers)]
+    if quantize:
+        tparams = qlm.quantize_embed(emb["embed"], emb["final_norm"], tcfg)
+        del emb
+        tparams["layers"] = [qlm.quantize_layer(lm.init_layer(gen, tcfg, device), tcfg)
+                             for _ in range(tcfg.n_layers)]
+    else:
+        tparams = dict(emb, layers=[lm.init_layer(gen, tcfg, device)
+                                    for _ in range(tcfg.n_layers)])
     dparams = lm.init_lm(gen, DLM, device)
-    dq = qlm.bvq_compress_lm(dparams, DLM, PAIR_BVQ, _generator(device, _BVQ_SEED))
-    return (
-        ServingModel(cfg=tcfg, params=tq, mode="w4a8", s_max=s_max, device=device),
-        ServingModel(cfg=DLM, params=dq, mode="bvq", s_max=s_max, device=device),
-    )
+    return _serving_pair(tcfg, tparams, DLM, dparams, quantize, s_max, device)
 
 
 def _to(tree, device):

@@ -1,10 +1,18 @@
-"""Layer library of the main path (torch counterpart of the parts of
-repro/models/layers.py the dense serving forward reaches): norms, rotary,
-prefill attention over a dense cache, and the paged KV cache.
+"""Layer library of the serving forwards (torch counterpart of the parts of
+repro/models/layers.py the dense serving forwards reach): norms, rotary,
+the dense family's attention and SwiGLU blocks, prefill attention over a
+dense cache, and the paged KV cache.  Every row-wise op gives a row the
+same bits whatever the number of rows in the call (tests/test_torch_rows.py),
+so a speculative verify scores a row exactly as a one-token step does.
 
-Paged attention runs ``kernels.paged_attn.paged_attention``: the CUDA
-kernel on the card, its plain version on the CPU.  Prefill attention is
-plain torch, as it is plain jnp in the reference."""
+``attend`` is the one attention route of all three forwards (the W4A8
+target, the BVQ draft, the bf16 ``lm.apply_lm``): a paged pool runs
+``kernels.paged_attn.paged_attention`` (the CUDA kernel on the card, its
+plain version on the CPU); a dense cache and the cache-free case run the
+plain torch ``decode_attention`` / ``flash_attention``, as they are plain
+jnp in the reference.  The dense blocks' linears are plain torch matmuls
+(``linear``), as the reference's are ``einsum``s outside any Pallas
+kernel."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,9 +26,16 @@ from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.models.common import ModelConfig
 
 __all__ = [
+    "row_mean_sq",
     "rmsnorm",
     "rope",
+    "silu_mul",
     "kv_store_heads",
+    "linear",
+    "attention_apply",
+    "mlp_apply",
+    "attend",
+    "advance_cache",
     "flash_attention",
     "PagedCache",
     "kv_quantize",
@@ -29,10 +44,30 @@ __all__ = [
 ]
 
 
+# the row count of every GEMM in flash_attention and linear (see there):
+# enough for a verify window of 8 rows x 9 slots in one block
+ROW_BLOCK = 128
+
+
+def row_mean_sq(xf: torch.Tensor) -> torch.Tensor:
+    """mean(xf * xf) over the last axis (keepdim), summed in stages of at
+    most 32 terms (zero-padded) so that a row's bits do not depend on the
+    number of rows: a CUDA reduction picks its thread layout, and with it
+    the order of a row's sum, from the number of outputs once a row has
+    more than 32 terms (one torch.mean over d = 4096 gave other bits at 4
+    and 8 rows than among 160 on an H100)."""
+    n = xf.shape[-1]
+    s = xf * xf
+    while s.shape[-1] > 32:
+        if s.shape[-1] % 32:
+            s = F.pad(s, (0, -s.shape[-1] % 32))
+        s = s.unflatten(-1, (-1, 32)).sum(-1)
+    return s.sum(-1, keepdim=True) / n
+
+
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    y = xf * torch.rsqrt(var + eps)
+    y = xf * torch.rsqrt(row_mean_sq(xf) + eps)
     return (y * params["g"].float()).to(x.dtype)
 
 
@@ -73,7 +108,25 @@ def flash_attention(
 ) -> torch.Tensor:
     """Streaming-softmax attention over KV chunks (prefill).  Dots take
     model-dtype operands with float32 accumulation; softmax statistics and
-    the accumulator stay float32, as in the reference."""
+    the accumulator stay float32, as in the reference.
+
+    The query rows run in blocks of ``ROW_BLOCK``, the last one zero-padded,
+    so every product has one shape however many rows the call has: a CUDA
+    GEMM picks its kernel by shape, and a row's bits then depended on the
+    call's row count (a prefix-cache hit's 7-15-row tail extend against the
+    full prefill, on an H100).  The padded rows are dropped."""
+    sq = q.shape[1]
+    outs = []
+    for i in range(0, sq, ROW_BLOCK):
+        qb = q[:, i:i + ROW_BLOCK]
+        pad = ROW_BLOCK - qb.shape[1]
+        out = _flash_block(F.pad(qb, (0, 0, 0, 0, 0, pad)) if pad else qb, k, v, causal,
+                           q_offset + i, kv_chunk)
+        outs.append(out[:, :ROW_BLOCK - pad])
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _flash_block(q, k, v, causal: bool, q_offset: int, kv_chunk: int) -> torch.Tensor:
     b, sq, h, hd = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = h // hkv
@@ -241,3 +294,80 @@ def paged_attention_update(
     out = paged_attention(q5, pc.k, pc.v, pc.page_table, new_len,
                           k_scale=pc.k_scale, v_scale=pc.v_scale, tree_mask=pc.tree_mask)
     return out.reshape(b, s, h, hd).to(q.dtype)
+
+
+def attend(i: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: Optional[dict],
+           offset, paged) -> torch.Tensor:
+    """Layer i's attention of post-rope (B, S, heads, hd) q / k / v, with
+    ``(offset, paged)`` from ``forward_cache_ctx``: through the paged pool
+    (fp or int8 stores, causal or tree window), into a dense cache (a
+    one-token step attends with ``decode_attention``, a wider one with
+    ``flash_attention``), or cache-free causal attention."""
+    if paged is not None:
+        table, tree_mask = paged
+        attn = cache["attn"]
+        pc = PagedCache(
+            k=attn["k"][i], v=attn["v"][i], page_table=table, length=offset,
+            k_scale=attn["k_scale"][i] if "k_scale" in attn else None,
+            v_scale=attn["v_scale"][i] if "v_scale" in attn else None,
+            tree_mask=tree_mask,
+        )
+        return paged_attention_update(q, k, v, pc)
+    if cache is None:
+        return flash_attention(q, k, v, causal=True)
+    s = q.shape[1]
+    ck, cv = cache["attn"]["k"][i], cache["attn"]["v"][i]
+    ck[:, offset:offset + s] = k.to(ck.dtype)
+    cv[:, offset:offset + s] = v.to(cv.dtype)
+    if s == 1:
+        return decode_attention(q, ck, cv, offset + 1)
+    return flash_attention(q, ck, cv, causal=True, q_offset=offset)
+
+
+def advance_cache(cache: Optional[dict], offset, s: int) -> Optional[dict]:
+    """The cache dict a forward returns: its tensors were written in place,
+    its length (per row for a paged pool) moves on by the S new tokens."""
+    if cache is None:
+        return None
+    new = dict(cache)
+    new["lengths" if "page_table" in cache else "length"] = offset + s
+    return new
+
+
+def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (..., K) @ w (K, N), the rows in blocks of ``ROW_BLOCK``, the last
+    one zero-padded, so that every product has one shape (as in
+    ``flash_attention``): a row's bits do not depend on how many rows share
+    the call (a one-token step, a verify window, a prefill)."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    outs = []
+    for i in range(0, x2.shape[0], ROW_BLOCK):
+        xb = x2[i:i + ROW_BLOCK]
+        pad = ROW_BLOCK - xb.shape[0]
+        outs.append(((F.pad(xb, (0, 0, 0, pad)) if pad else xb) @ w)[:ROW_BLOCK - pad])
+    y = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return y.reshape(*lead, w.shape[-1])
+
+
+def attention_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, cache: Optional[dict],
+                    offset, positions: torch.Tensor, paged) -> torch.Tensor:
+    """The dense family's attention block over the normed input x (B, S,
+    d): q / k / v from the (d, heads, hd) weights, rope, layer i's
+    ``attend``, and the (heads, hd, d) output projection (the reference's
+    ``einsum``s as ``linear``s over the weights' flat views)."""
+    b, s, d = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q = rope(linear(x, p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd), positions,
+             cfg.rope_theta)
+    k = rope(linear(x, p["wk"].reshape(d, kv * hd)).reshape(b, s, kv, hd), positions,
+             cfg.rope_theta)
+    v = linear(x, p["wv"].reshape(d, kv * hd)).reshape(b, s, kv, hd)
+    out = attend(i, q, k, v, cache, offset, paged).reshape(b, s, h * hd)
+    return linear(out, p["wo"].reshape(h * hd, d))
+
+
+def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU: silu of the gate in float32, cast to x's dtype, times up,
+    then down."""
+    return linear(silu_mul(linear(x, p["w_gate"]), linear(x, p["w_up"]), x.dtype), p["w_down"])

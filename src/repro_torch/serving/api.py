@@ -9,10 +9,8 @@ repro/serving/api.py).
 * ``RequestOutput`` / ``CompletionOutput`` — the streaming result type.
 * ``EngineConfig`` — engine-wide knobs.  The paged-attention path is not a
   knob here: the device decides (kernel on the card, plain version on the
-  CPU).  Non-default values of the features this port does not carry yet
-  (the prefix cache, device-time profiling) are accepted by the dataclass
-  and refused by ``Engine``; the knobs that only those features read
-  (byte budgets) are left out.
+  CPU).  A non-default ``profile_every_n`` (device-time profiling, not
+  ported yet) is accepted by the dataclass and refused by ``Engine``.
 """
 from __future__ import annotations
 
@@ -124,6 +122,10 @@ class EngineConfig:
     long_dl: int = 6
     num_pages: Optional[int] = None  # page budget per pool (None: fit
     # max_batch worst-case requests of max_model_len tokens)
+    # byte budget per pool, in the bytes of its storage kinds (int8 pages
+    # with their scales are ~3.5x smaller than f32 ones, so the same budget
+    # holds more of them); exclusive with num_pages
+    pool_bytes: Optional[int] = None
     max_model_len: Optional[int] = None  # peak cache length of a request
     # paged-KV storage: "none" (model dtype), "int8" (every request stores
     # int8 pages + one f32 scale per (slot, kv head)) or "mixed" (both
@@ -142,8 +144,10 @@ class EngineConfig:
     # which window-full rows verify while the other rows draft
     # (core/scheduler.plan_mixed_slot).  Tokens are the same in both.
     par_mode: str = "off"
-    # not ported yet: refused by Engine at any value but the default
+    # copy-on-write prefix cache: full prompt blocks are shared read-only
+    # between requests of one KV kind (serving/prefix_cache.py)
     prefix_cache: bool = False
+    # not ported yet: refused by Engine at any value but the default
     profile_every_n: int = 0  # sampled device-time profiling
 
     def __post_init__(self):
@@ -164,6 +168,11 @@ class EngineConfig:
             raise ValueError(
                 f"kv_quant must be 'none', 'int8' or 'mixed', got {self.kv_quant!r}"
             )
+        if self.pool_bytes is not None:
+            if self.num_pages is not None:
+                raise ValueError("set num_pages or pool_bytes, not both")
+            if self.pool_bytes <= 0:
+                raise ValueError(f"pool_bytes must be > 0, got {self.pool_bytes}")
         if self.profile_every_n < 0:
             raise ValueError(f"profile_every_n must be >= 0, got {self.profile_every_n}")
 
@@ -200,7 +209,4 @@ class EngineConfig:
 
     def unported(self) -> List[str]:
         """The non-default settings this port does not carry yet."""
-        defaults = EngineConfig.__dataclass_fields__
-        names = ("prefix_cache", "profile_every_n")
-        return [f"{n}={getattr(self, n)!r}" for n in names
-                if getattr(self, n) != defaults[n].default]
+        return [f"profile_every_n={self.profile_every_n!r}"] if self.profile_every_n else []

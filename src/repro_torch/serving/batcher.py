@@ -1,13 +1,16 @@
 """Continuous-batching scheduler over the paged KV pools (torch counterpart
-of repro/serving/batcher.py, without the prefix cache, which is not ported
-yet).
+of repro/serving/batcher.py).
 
 A QUEUED request is admitted into a free batch slot only when BOTH pools
 (target + draft) can reserve its worst-case page count (prompt +
 max_new_tokens + a full draft/verify window), so an admitted request can
 never run out of pages mid-flight; a FINISHED request releases its pages
 at once.  Admission is head-of-line FIFO, and every (slot, request)
-binding is stable from admission to retirement.  Each round also prices
+binding is stable from admission to retirement.  With a prefix cache
+(serving/prefix_cache.py) the head's longest cached prefix maps shared
+pages that its reservation does not pay for, and under pool pressure
+admission evicts cached blocks, least recently used first, before it
+stalls.  Each round also prices
 the dispatched work with the WDOS discrete-event model
 (core/scheduler.py), as the reference does, and under ``par_mode="wdos"``
 each fused slot is counted by kind and priced on its own
@@ -23,6 +26,7 @@ from repro_torch.core import scheduler as sch
 from repro_torch.core.scheduler import MixedSlotPlan, Queue
 from repro_torch.serving.observability import MetricsRegistry
 from repro_torch.serving.paged_cache import PagedKVPool
+from repro_torch.serving.prefix_cache import PrefixCache, PrefixMatch
 from repro_torch.serving.request import DraftController, Request, RequestState
 
 __all__ = ["ContinuousBatcher", "WDOSModelStats"]
@@ -59,8 +63,10 @@ class ContinuousBatcher:
         t_costs: Tuple[float, float],  # (per-layer load, per-layer compute)
         d_costs: Tuple[float, float],
         metrics: Optional[MetricsRegistry] = None,
+        prefix_cache: Optional[PrefixCache] = None,
     ):
         self.cfg = cfg
+        self.prefix_cache = prefix_cache
         self.t_pool = t_pool
         self.d_pool = d_pool
         self.t_layers = t_layers
@@ -110,22 +116,53 @@ class ContinuousBatcher:
             req.controller = DraftController(self.cfg.draft_len, self.cfg.draft_len)
         self.queue.append(req)
 
+    def _allocate_pair(self, peak: int, match: Optional[PrefixMatch]):
+        """One attempt at both pools' worst-case reservations, the match's
+        fully shared pages not charged; (None, None) on failure, with
+        nothing leaked."""
+        def alloc(pool, role):
+            if match is None:
+                return pool.allocate_sequence(peak)
+            return pool.allocate_sequence(peak, shared_pages=match.shared_pages(role),
+                                          shared_tokens=match.tokens_matched)
+
+        t_seq = alloc(self.t_pool, "target")
+        if t_seq is None:
+            return None, None
+        d_seq = alloc(self.d_pool, "draft")
+        if d_seq is None:
+            t_seq.release()
+            return None, None
+        return t_seq, d_seq
+
     def admit(self) -> List[Tuple[int, Request]]:
         """Fill free slots FIFO while both pools can take the worst case.
-        Returns the newly admitted (slot, request) pairs (they need prefill)."""
+        Returns the newly admitted (slot, request) pairs (they need prefill).
+
+        With a prefix cache the head's longest cached prefix discounts its
+        reservation, and under pool pressure cached blocks are evicted one
+        at a time (LRU, zero-ref leaves) until the reservation fits or
+        nothing evictable is left (then the head waits, as without it)."""
         out: List[Tuple[int, Request]] = []
+        pc = self.prefix_cache
         for slot in range(self.cfg.max_batch):
             if self.slots[slot] is not None or not self.queue:
                 continue
             req = self.queue[0]
             peak = req.peak_cache_len(self.cfg.spec_window)
-            t_seq = self.t_pool.allocate_sequence(peak)
+            match = pc.match(req.prompt, req.kv_kind) if pc is not None else None
+            while True:
+                t_seq, d_seq = self._allocate_pair(peak, match)
+                if t_seq is not None or pc is None or pc.evict_one() == 0:
+                    break
+                # the eviction may have freed a node of the matched path
+                # (its node refs are zero until acquire): match again
+                match = pc.match(req.prompt, req.kv_kind)
             if t_seq is None:
                 break  # head-of-line: keep FIFO order, wait for pages
-            d_seq = self.d_pool.allocate_sequence(peak)
-            if d_seq is None:
-                t_seq.release()
-                break
+            if match is not None:
+                pc.acquire(match)
+                req.prefix_match = match
             self.queue.popleft()
             req.t_seq, req.d_seq = t_seq, d_seq
             req.state = RequestState.PREFILL
@@ -152,11 +189,19 @@ class ContinuousBatcher:
         req = self.slots[slot]
         assert req is not None
         req.finish(reason=reason)
+        # unpin the radix path only after the sequences dropped their page
+        # references (in finish): the pool's per-page refcount then frees
+        # no page that another row still maps
+        if req.prefix_match is not None:
+            self.prefix_cache.release(req.prefix_match)
+            req.prefix_match = None
         self._tally_finished(req)
         self.slots[slot] = None
 
     def cancel_queued(self, rid: int) -> Optional[Request]:
-        """Drop a not-yet-admitted request from the queue (Engine.abort)."""
+        """Drop a not-yet-admitted request from the queue (Engine.abort).
+        A queued request holds no prefix match (matches are acquired at
+        admission), so there is no radix path to unpin."""
         for req in list(self.queue):
             if req.rid == rid:
                 self.queue.remove(req)

@@ -65,8 +65,16 @@ and masked rows point every table slot at the pool's scratch page, and no
 caller reads their logits.  Greedy tokens are per-row deterministic, so
 batch composition never changes a request's output.
 
-Not ported yet (refused with NotImplementedError): the prefix cache and
-device-time profiling; the tracer and the flight recorder are absent.
+Prefix cache (``EngineConfig.prefix_cache``): admission maps the longest
+cached prefix of a prompt as read-only shared pages in both pools
+(serving/prefix_cache.py, serving/batcher.py), and the prefill runs only
+the unshared tail, over a dense cache seeded with the tree's host mirrors
+of the prefix, after copying a partially shared last page on write
+(``_prefill_into``); a full hit runs no forward.  Each new full block of a
+prefilled prompt is donated to the tree.
+
+Not ported yet (refused with NotImplementedError): device-time profiling;
+the tracer and the flight recorder are absent.
 """
 from __future__ import annotations
 
@@ -102,7 +110,13 @@ from repro_torch.serving.api import (
 )
 from repro_torch.serving.batcher import ContinuousBatcher
 from repro_torch.serving.observability import MetricsRegistry
-from repro_torch.serving.paged_cache import PagedKVPool, device_pool_store, pages_for
+from repro_torch.serving.paged_cache import (
+    PagedKVPool,
+    device_pool_store,
+    num_pages_for_bytes,
+    pages_for,
+)
+from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request, RequestState
 
 __all__ = [
@@ -116,24 +130,26 @@ __all__ = [
 ]
 
 
+# the forward of each serving mode: the W4A8 target, the BVQ draft, and
+# either side of the dense bf16 pair (launch/serve.build_pair(quantize=False))
+_FORWARDS = {"w4a8": qlm.apply_quantized_lm, "bvq": qlm.apply_bvq_lm, "bf16": lm.apply_lm}
+
+
 @dataclasses.dataclass
 class ServingModel:
     cfg: ModelConfig
     params: Any
-    mode: str = "w4a8"  # w4a8 (target) | bvq (draft)
+    mode: str = "w4a8"  # w4a8 (target) | bvq (draft) | bf16 (dense pair)
     s_max: int = 512
     device: Any = "cuda"
 
     def __post_init__(self):
-        if self.mode not in ("w4a8", "bvq"):
-            raise NotImplementedError(
-                f"serving mode {self.mode!r}: the port serves the w4a8 target and the bvq draft"
-            )
+        if self.mode not in _FORWARDS:
+            raise ValueError(f"serving mode {self.mode!r} is not one of {sorted(_FORWARDS)}")
         self.device = torch.device(self.device)
 
     def _apply(self, params, tokens, cache):
-        fwd = qlm.apply_quantized_lm if self.mode == "w4a8" else qlm.apply_bvq_lm
-        return fwd(params, self.cfg, tokens, cache=cache)
+        return _FORWARDS[self.mode](params, self.cfg, tokens, cache=cache)
 
 
 def make_interface(model: ServingModel) -> LMInterface:
@@ -164,10 +180,18 @@ def _wdos_costs(mcfg: ModelConfig) -> Tuple[float, float]:
 
 
 def _pool_for(model: ServingModel, cfg: EngineConfig, peaks: Sequence[int]) -> PagedKVPool:
-    """Page allocator sized to hold `max_batch` worst-case requests (or the
-    explicit cfg.num_pages budget); the KV bytes live in device tensors."""
+    """Page allocator sized to hold `max_batch` worst-case requests, or the
+    explicit cfg.num_pages budget, or the pages cfg.pool_bytes buys in the
+    bytes of the pool's storage kinds (an int8 page with its scales is
+    ~3.5x smaller than an f32 one); the KV bytes live in device tensors."""
     mcfg = model.cfg
-    if cfg.num_pages is not None:
+    if cfg.pool_bytes is not None:
+        num_pages = num_pages_for_bytes(
+            cfg.pool_bytes, n_layers=mcfg.n_layers, kv_heads=L.kv_store_heads(mcfg),
+            head_dim=mcfg.hd, page_size=cfg.page_size, dtype=mcfg.tdtype,
+            kv_quant=cfg.kv_quant,
+        )
+    elif cfg.num_pages is not None:
         num_pages = cfg.num_pages
     else:
         worst = sorted((pages_for(p, cfg.page_size) for p in peaks), reverse=True)
@@ -209,18 +233,21 @@ def _make_paged_step(model: ServingModel):
 
 
 def _scatter_prefill(store: Dict[str, torch.Tensor], k_dense: torch.Tensor,
-                     v_dense: torch.Tensor, pages: torch.Tensor, n: int) -> None:
-    """Write a freshly prefilled request's dense cache rows [0, n) into its
-    pool pages, device to device, in place.  k_dense/v_dense: (L, s_max,
-    kvh, hd); pages: (mp,) physical page ids of the request's table row.
-    For an int8 store the rows quantize here (the rule the decode steps
-    apply) and values and scales land together.  The reference scatters a
-    fixed-width span and routes the slots outside [0, n) to the scratch
-    page so it compiles once; eager torch writes the valid rows only."""
+                     v_dense: torch.Tensor, pages: torch.Tensor, n: int, start: int = 0) -> None:
+    """Write a freshly prefilled request's dense cache rows [start, n) into
+    its pool pages, device to device, in place.  k_dense/v_dense: (L,
+    s_max, kvh, hd); pages: (mp,) physical page ids of the request's table
+    row.  A prefix-cache hit passes start = tokens matched, so the shared
+    prefix pages (whose rows are resident already, and which the donor, the
+    tree and other rows read) are never written.  For an int8 store the
+    rows quantize here (the rule the decode steps apply) and values and
+    scales land together.  The reference scatters a fixed-width span and
+    routes the slots outside [start, n) to the scratch page so it compiles
+    once; eager torch writes the valid rows only."""
     nl, p1, ps, kvh, _ = store["k"].shape
-    pos = torch.arange(n, device=pages.device)
+    pos = torch.arange(start, n, device=pages.device)
     flat = pages.long()[pos // ps] * ps + pos % ps
-    k_rows, v_rows = k_dense[:, :n], v_dense[:, :n]
+    k_rows, v_rows = k_dense[:, start:n], v_dense[:, start:n]
     if "k_scale" in store:
         (kq, ks), (vq, vs) = L.kv_quantize(k_rows), L.kv_quantize(v_rows)
         writes = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
@@ -229,6 +256,42 @@ def _scatter_prefill(store: Dict[str, torch.Tensor], k_dense: torch.Tensor,
     for name, src in writes.items():
         pool = store[name]
         pool.view(nl, p1 * ps, kvh, pool.shape[-1])[:, flat] = src.to(pool.dtype)
+
+
+def _copy_page(store: Dict[str, torch.Tensor], src: int, dst: int) -> None:
+    """Copy one physical page in every tensor of a store (values and, for
+    int8, scales), in place: the copy-on-write that privatizes a partially
+    shared prefix page before its holder's first write."""
+    for a in store.values():
+        a[:, dst] = a[:, src]
+
+
+def _pull_mirror(k_dense: torch.Tensor, v_dense: torch.Tensor, n: int):
+    """A donor's dense rows [0, n) of one model, (L, n, kvh, hd) each,
+    copied to the host for the prefix cache's mirrors."""
+    return k_dense[:, :n].cpu(), v_dense[:, :n].cpu()
+
+
+def _push_mirror(match, role: str, k_dst: torch.Tensor, v_dst: torch.Tensor) -> None:
+    """Copy the matched prefix's mirrored rows [0, m) into k_dst / v_dst
+    (L, >= m, kvh, hd) on the device, one copy per block (asynchronous
+    from page-locked mirrors; the host allocator keeps a mirror alive
+    until its copy is done)."""
+    m = match.tokens_matched
+    for j, (kb, vb) in enumerate(match.blocks(role)):
+        lo = j * kb.shape[1]
+        n = min(kb.shape[1], m - lo)
+        k_dst[:, lo:lo + n].copy_(kb[:, :n], non_blocking=True)
+        v_dst[:, lo:lo + n].copy_(vb[:, :n], non_blocking=True)
+
+
+def _seeded_cache(model: "ServingModel", match, role: str, device) -> Dict[str, Any]:
+    """A one-row dense cache holding the matched prefix's mirrored rows at
+    length m: the start of a hit's tail extend."""
+    cache = lm.init_cache(model.cfg, 1, model.s_max, device)
+    _push_mirror(match, role, cache["attn"]["k"][:, 0], cache["attn"]["v"][:, 0])
+    cache["length"] = match.tokens_matched
+    return cache
 
 
 def _compact_slots(store: Dict[str, torch.Tensor], src: torch.Tensor,
@@ -393,6 +456,14 @@ class Engine:
         self._kinds = cfg.kv_kinds
         self._t_stores = {k: device_pool_store(self._t_pool, self.device, k) for k in self._kinds}
         self._d_stores = {k: device_pool_store(self._d_pool, self.device, k) for k in self._kinds}
+        # copy-on-write prefix cache: a refcounted radix tree over prompt
+        # blocks whose hits map read-only shared pages in both pools
+        # (serving/prefix_cache.py; admission in the batcher, the hit-path
+        # prefill in _prefill_into)
+        self._prefix: Optional[PrefixCache] = None
+        if cfg.prefix_cache:
+            self._prefix = PrefixCache({"target": self._t_pool, "draft": self._d_pool},
+                                       cfg.page_size, pin_memory=self.device.type == "cuda")
 
         self.metrics = m = MetricsRegistry()
         self._m_table_upload = m.counter(
@@ -418,15 +489,32 @@ class Engine:
             "host_copies_total",
             "Device-to-host copies of logits or draft tokens in rounds (each waits for the device)",
         )
+        # prefix-cache families, registered whether or not the cache is on
+        # (they stay at zero without it)
+        self._m_prefix_hit_rate = m.gauge(
+            "prefix_hit_rate", "Prefix-cache hit fraction over admission lookups",
+        )
+        self._m_shared_pages = m.gauge(
+            "shared_pages",
+            "Prefix-cache page residency: state='shared' counts pool pages mapped by more "
+            "than one holder, state='cached' the pages the radix tree pins",
+            ("pool", "state"),
+        )
+        self._m_tokens_saved = m.counter(
+            "prefill_tokens_saved_total", "Prompt rows whose prefill was skipped via shared pages",
+        )
+        self._m_prefix_cow = m.counter(
+            "prefix_cow_total", "Copy-on-write privatizations of a partially shared prefix page",
+        )
         for fam in (self._m_tree_nodes, self._m_tree_branches, self._m_tree_compactions,
-                    self._m_host_copies):
+                    self._m_host_copies, self._m_tokens_saved, self._m_prefix_cow):
             fam.inc(0)
 
         self._batcher = ContinuousBatcher(
             cfg, self._t_pool, self._d_pool,
             t_layers=target.cfg.n_layers, d_layers=draft.cfg.n_layers,
             t_costs=_wdos_costs(target.cfg), d_costs=_wdos_costs(draft.cfg),
-            metrics=self.metrics,
+            metrics=self.metrics, prefix_cache=self._prefix,
         )
         self._t_iface, self._d_iface = make_interface(target), make_interface(draft)
         self._t_step, self._d_step = _make_paged_step(target), _make_paged_step(draft)
@@ -506,12 +594,25 @@ class Engine:
         """(target PoolStats, draft PoolStats) — page residency right now."""
         return self._t_pool.stats(), self._d_pool.stats()
 
+    def _refresh_prefix_gauges(self) -> None:
+        """Republish the prefix cache's level-style series (hit rate, shared
+        and cached pages per pool); called at step boundaries and before a
+        stats snapshot."""
+        if self._prefix is None:
+            return
+        self._m_prefix_hit_rate.set(self._prefix.hit_rate)
+        for name, pool in (("target", self._t_pool), ("draft", self._d_pool)):
+            self._m_shared_pages.labels(pool=name, state="shared").set(pool.shared_page_count)
+            self._m_shared_pages.labels(pool=name, state="cached").set(self._prefix.node_count)
+
     def stats_snapshot(self) -> dict:
         """One JSON-safe stats view: queue and slots, rounds, acceptance,
-        the KV storage mode and each pool's residency (bytes per kind)."""
+        the KV storage mode, each pool's residency (bytes per kind) and,
+        with the prefix cache on, its stats."""
+        self._refresh_prefix_gauges()
         t_stats, d_stats = self.pool_stats()
         b = self._batcher
-        return {
+        snap = {
             "queued": self.queue_depth(),
             "active": self.num_active(),
             "max_batch": self.cfg.max_batch,
@@ -526,33 +627,80 @@ class Engine:
             "target_pool": dataclasses.asdict(t_stats),
             "draft_pool": dataclasses.asdict(d_stats),
         }
+        if self._prefix is not None:
+            snap["prefix_cache"] = self._prefix.stats()
+        return snap
 
     # -- the stepwise round --------------------------------------------------
 
     def _prefill_into(self, req: Request, model: ServingModel, iface: LMInterface,
-                      seq, store, tables: _TableSet, slot: int) -> None:
+                      seq, store, tables: _TableSet, slot: int, role: str):
         """Prefill one request into one pool: back all its pages, run the
         dense-cache prefill over prompt[:-1] (the tip is re-fed by the first
-        round), and scatter the cache rows into the request's pages."""
+        round), and scatter the cache rows into the request's pages.
+
+        A prefix-cache hit (``req.prefix_match`` covers m tokens) has its
+        shared pages in the table already, holding the rows a full prefill
+        would write.  A partially shared last page is copied on write first
+        (in the store of the request's kind), so the shared page is never
+        written.  A full hit (m = plen - 1) runs no forward: the first
+        round re-feeds the tip at plen - 1, in the private copy.  Otherwise
+        the tail [m, plen - 1) runs as an ``extend`` over a dense cache
+        seeded with the mirrored prefix rows and scatters with start = m.
+        Rewind never goes below the committed prefix, so no later write
+        reaches a shared page either.
+
+        Returns the dense rows [0, plen - 1) on the host for the prefix
+        cache to mirror when the prompt has a full block the tree lacks,
+        else None."""
         plen = req.prompt.shape[0]
+        match = req.prefix_match
+        m = match.tokens_matched if match is not None else 0
         seq.ensure_backed(seq.capacity_pages * seq.pool.page_size)
+        if seq.needs_cow:
+            _copy_page(store, *seq.cow_last_shared())
+            self._prefix.cow_copies += 1
+            self._m_prefix_cow.inc()
         tables.set_row(slot, seq)
-        tokens = torch.as_tensor(req.prompt[None, :-1], device=self.device)
-        _, cache = iface.prefill(model.params, tokens)
-        _scatter_prefill(
-            store, cache["attn"]["k"][:, 0], cache["attn"]["v"][:, 0],
-            torch.as_tensor(tables.table[slot], device=self.device), plen - 1,
-        )
-        seq.advance(plen - 1)
+        if m >= plen - 1:
+            return None
+        if m > 0:
+            tail = torch.as_tensor(req.prompt[None, m:-1], device=self.device)
+            _, cache = iface.extend(model.params, tail, _seeded_cache(model, match, role,
+                                                                      self.device))
+        else:
+            tokens = torch.as_tensor(req.prompt[None, :-1], device=self.device)
+            _, cache = iface.prefill(model.params, tokens)
+        k, v = cache["attn"]["k"][:, 0], cache["attn"]["v"][:, 0]
+        _scatter_prefill(store, k, v, torch.as_tensor(tables.table[slot], device=self.device),
+                         plen - 1, m)
+        seq.advance(plen - 1 - m)
+        ps = seq.pool.page_size
+        # the matched path covers blocks [0, m // ps); pull the rows only
+        # when the prompt has a full block beyond it (a steady-state hit
+        # ran a sub-page tail and donates nothing)
+        if self._prefix is not None and m // ps < (plen - 1) // ps:
+            return _pull_mirror(k, v, plen - 1)
+        return None
 
     def _admit(self) -> None:
         """Admit whatever fits and prefill it into both pools (the store of
-        the request's kind in each)."""
+        the request's kind in each); donate the new full blocks to the
+        prefix cache."""
         for slot, req in self._batcher.admit():
-            self._prefill_into(req, self.target, self._t_iface, req.t_seq,
-                               self._t_stores[req.kv_kind], self._t_tables, slot)
-            self._prefill_into(req, self.draft, self._d_iface, req.d_seq,
-                               self._d_stores[req.kv_kind], self._d_tables, slot)
+            kind = req.kv_kind
+            t_kv = self._prefill_into(req, self.target, self._t_iface, req.t_seq,
+                                      self._t_stores[kind], self._t_tables, slot, "target")
+            d_kv = self._prefill_into(req, self.draft, self._d_iface, req.d_seq,
+                                      self._d_stores[kind], self._d_tables, slot, "draft")
+            if self._prefix is not None:
+                if req.prefix_match is not None:
+                    self._m_tokens_saved.inc(req.prefix_match.tokens_matched)
+                if t_kv is not None:
+                    self._prefix.insert(req.prompt, kind,
+                                        {"target": req.t_seq.pages, "draft": req.d_seq.pages},
+                                        {"target": t_kv, "draft": d_kv},
+                                        upto=req.prompt.shape[0] - 1)
             req.state = RequestState.DECODE
 
     def _kvq_mask(self, active) -> Optional[torch.Tensor]:
@@ -622,6 +770,7 @@ class Engine:
                     if req.done:
                         self._retire(slot)
         self._batcher.step_count += 1
+        self._refresh_prefix_gauges()
         return [self._output_for(req) for _, req in active]
 
     def _commit(self, req: Request, new: List[int], n_acc: int, dl: int, drafted: int,
@@ -1049,4 +1198,6 @@ class Engine:
         }
         s["table_upload_s"] = self._m_table_upload.value()
         s["host_copies"] = self._m_host_copies.value()
+        if self._prefix is not None:
+            s["prefix_cache"] = self._prefix.stats()
         return s

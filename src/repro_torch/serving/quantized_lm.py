@@ -163,8 +163,7 @@ def bvq_compress_lm(params: Params, cfg: ModelConfig, bcfg: bvq_mod.BVQConfig,
 
 def _norm_only(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return (xf * torch.rsqrt(L.row_mean_sq(xf) + eps)).to(x.dtype)
 
 
 def _qlinear(x: torch.Tensor, qw: Params) -> torch.Tensor:
@@ -173,39 +172,6 @@ def _qlinear(x: torch.Tensor, qw: Params) -> torch.Tensor:
 
 def _bvq(x: torch.Tensor, bw: Params) -> torch.Tensor:
     return ops.bvq_linear(x, bw["cb"], bw["idx"])
-
-
-def _attend(i: int, q_, k_, v_, cache, offset, paged) -> torch.Tensor:
-    """Layer i's attention: through the paged pool (fp or int8 stores,
-    causal or tree window), into a dense cache (prefill / dense decode), or
-    cache-free causal attention."""
-    if paged is not None:
-        table, tree_mask = paged
-        attn = cache["attn"]
-        pc = L.PagedCache(
-            k=attn["k"][i], v=attn["v"][i], page_table=table, length=offset,
-            k_scale=attn["k_scale"][i] if "k_scale" in attn else None,
-            v_scale=attn["v_scale"][i] if "v_scale" in attn else None,
-            tree_mask=tree_mask,
-        )
-        return L.paged_attention_update(q_, k_, v_, pc)
-    if cache is None:
-        return L.flash_attention(q_, k_, v_, causal=True)
-    s = q_.shape[1]
-    ck, cv = cache["attn"]["k"][i], cache["attn"]["v"][i]
-    ck[:, offset:offset + s] = k_.to(ck.dtype)
-    cv[:, offset:offset + s] = v_.to(cv.dtype)
-    if s == 1:
-        return L.decode_attention(q_, ck, cv, offset + 1)
-    return L.flash_attention(q_, ck, cv, causal=True, q_offset=offset)
-
-
-def _advance(cache: Optional[Params], offset, s: int) -> Optional[Params]:
-    if cache is None:
-        return None
-    new = dict(cache)
-    new["lengths" if "page_table" in cache else "length"] = offset + s
-    return new
 
 
 def apply_quantized_lm(
@@ -229,14 +195,14 @@ def apply_quantized_lm(
         v_ = _qlinear(z, p["wv"]).reshape(b, s, kv, hd)
         q_ = L.rope(q_, positions, cfg.rope_theta)
         k_ = L.rope(k_, positions, cfg.rope_theta)
-        att = _attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
+        att = L.attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
         x = x + _qlinear(att, p["wo"])
         z2 = _norm_only(x)
         g_ = _qlinear(z2, p["w_gate"])
         u_ = _qlinear(z2, p["w_up"])
         hid = ops.lru_rotate(L.silu_mul(g_, u_, x.dtype), r2)  # the LRU's online stage
         x = x + _qlinear(hid, p["w_down"])
-    return _qlinear(_norm_only(x), qparams["head"]), _advance(cache, offset, s)
+    return _qlinear(_norm_only(x), qparams["head"]), L.advance_cache(cache, offset, s)
 
 
 def apply_bvq_lm(
@@ -257,14 +223,14 @@ def apply_bvq_lm(
         v_ = _bvq(z, p["wv"]).reshape(b, s, kv, hd).to(x.dtype)
         q_ = L.rope(q_, positions, cfg.rope_theta)
         k_ = L.rope(k_, positions, cfg.rope_theta)
-        att = _attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
+        att = L.attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
         x = x + _bvq(att, p["wo"]).to(x.dtype)
         z2 = L.rmsnorm(p["ln2"], x)
         g_ = _bvq(z2, p["w_gate"])
         u_ = _bvq(z2, p["w_up"]).to(x.dtype)
         x = x + _bvq(L.silu_mul(g_, u_, x.dtype), p["w_down"]).to(x.dtype)
     x = L.rmsnorm(qparams["final_norm"], x)
-    return x @ qparams["head"].to(x.dtype), _advance(cache, offset, s)
+    return x @ qparams["head"].to(x.dtype), L.advance_cache(cache, offset, s)
 
 
 # ---------------------------------------------------------------------------

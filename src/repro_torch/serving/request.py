@@ -33,7 +33,7 @@ from __future__ import annotations
 import bisect
 import dataclasses
 import enum
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -94,6 +94,10 @@ class Request:
     d_seq: Optional[PagedSequence] = None
     controller: Optional[DraftController] = None
     finish_reason: Optional[str] = None
+    # the prefix-cache hit this request was admitted with (PrefixMatch),
+    # held until retirement so the batcher can unpin its radix-tree path;
+    # None when the cache is off or the lookup missed
+    prefix_match: Optional[Any] = None
 
     rounds: int = 0  # committed rounds: the key streams' round index
     drafted: int = 0

@@ -1,7 +1,8 @@
 """The port's Engine against the JAX Engine on the quantized smoke pair
 (W4A8 target, BVQ draft), weights carried across: greedy tokens must match
 token for token at batch 1 and with 4 requests at max_batch=4.  Also page
-return on abort and the refusals of what the port does not carry yet.
+return on abort, the refusal of what the port does not carry yet and the
+pool-sizing checks.
 int8 KV and tree speculation are held in tests/test_torch_tree_int8.py,
 sampled requests and stop strings in tests/test_torch_sampled_engine.py."""
 import numpy as np
@@ -92,13 +93,20 @@ def test_abort_returns_pages(pairs):
     assert len(eng.output_tokens(rids[1])) == MAX_TOKENS
 
 
-@pytest.mark.parametrize("cfg", [dict(prefix_cache=True), dict(profile_every_n=2)],
-                         ids=["prefix_cache", "profile_every_n"])
+@pytest.mark.parametrize("cfg", [dict(profile_every_n=2)], ids=["profile_every_n"])
 def test_unported_settings_raise(pairs, cfg):
     """The EngineConfig features the port does not carry yet are refused at
-    construction (adaptive drafts and WDOS rounds are served: see
-    tests/test_torch_wdos.py)."""
+    construction (the prefix cache is served: tests/test_torch_prefix_cache.py)."""
     _, (tt, td) = pairs
     assert EngineConfig(**cfg).unported() == [f"{k}={v!r}" for k, v in cfg.items()]
     with pytest.raises(NotImplementedError):
         Engine(tt, td, EngineConfig(**cfg), device="cpu")
+
+
+def test_num_pages_and_pool_bytes_exclusive():
+    """A pool is sized by a page count or by a byte budget, never both; a
+    budget must be positive (the reference's checks)."""
+    with pytest.raises(ValueError):
+        EngineConfig(num_pages=64, pool_bytes=1 << 20)
+    with pytest.raises(ValueError):
+        EngineConfig(pool_bytes=0)
