@@ -90,14 +90,45 @@ Phases, in order (any failure exits non-zero before the final line):
    spec_mode="tree"``, the donor once per kind, the followers alternating.
 15. Byte budgets: ``pool_bytes`` at 4 and 1 GiB, pages per kind and the
    requests resident after one step with 16 queued, fp against int8.
-16. Dense path: the bf16 pair at the paper's widths (``build_paper_pair(
+16. QAT draft path: a dense LLaMA-68M-width draft compressed on the card
+   with the pair's k-means settings and with the reference's QAT defaults
+   (60 Gumbel-softmax steps): seconds and each linear's reconstruction
+   MSE under both; the QAT draft then serves the main path's requests
+   with the main target: bvq launches, rows equal the main path's except
+   at a near-tie, acceptance printed.
+17. Observed path: the main path's engine, then the WDOS path's
+   (staggered, requests 0 and 2 sampled), each with a Tracer and
+   ``profile_every_n=1``: rows bitwise equal to their unprofiled runs, the
+   Chrome trace valid, the device track naming every program the path
+   dispatched (prefill / draft / verify; prefill / fused_wdos /
+   draft_slot), one flight record per round, and ``/metrics`` holding
+   every family the JAX engine's registry renders.  Prints
+   ``profile_summary()`` (calls, wall, FLOPs and bytes per call, achieved
+   bytes/s against the card's memory rate).  A third profiled engine, two
+   phases at a fixed draft length of the WDOS engine's long_dl, verifies
+   the same (max_batch, 7) window a fused_wdos slot does: fused_wdos wall
+   is printed against that verify plus draft_slot.  Last, the main path's
+   tokens/s traced (profiling off) beside a plain run.
+18. Server path: ``CompletionServer(AsyncEngine(Engine(pair,
+   EngineConfig())))`` on 127.0.0.1: four concurrent completions (two SSE,
+   one JSON, one sampled) equal to the main / sampled path's rows except
+   at a near-tie; a stream that disconnects after 4 tokens and a saturated
+   gate answering 429 return every page; /healthz, /stats, /metrics
+   answer 200; w4a8, block_rotate, bvq and paged attention launch.  HTTP
+   tokens/s and the TTFT / ITL means printed.  The engine is built on the
+   index-less device "cuda", as the server CLI builds it.  Last, the CLI
+   itself (``python -m repro_torch.serving.server --port 0``, its
+   defaults: device cuda, the quantized smoke pair) in a child process:
+   one streamed completion equals ``Engine.run`` of the same request, and
+   /healthz answers 200; the process is stopped after.
+19. Dense path: the bf16 pair at the paper's widths (``build_paper_pair(
    quantize=False)``, 6.7 B target parameters) at ``EngineConfig()``, the
    main path's prompts: paged attention launches, no matmul or rotation
    kernel does, and each row equals the target-only greedy decode through
    the paged path except at a near-tie (the dense-cache decode is
    compared and reported, as on the main path).  The pair is freed after
    it.
-17. Card against CPU at smoke size: one smoke pair built on the CPU from a
+20. Card against CPU at smoke size: one smoke pair built on the CPU from a
    fixed seed, copied to the card; the same requests through the port on
    cuda (kernels) and on cpu (plain versions) with seven engines (greedy
    chain, greedy mixed-KV tree, sampled chain, sampled mixed-KV tree, a
@@ -857,7 +888,7 @@ def _run(eng, prompts, sps, stagger=False):
     return [eng.output_tokens(r) for r in rids], eng.summary()
 
 
-def _drive(phase, eng, prompts, sps, dev, needs=None, stagger=False):
+def _drive(phase, eng, prompts, sps, dev, needs=None, stagger=False, report=None):
     """Run one engine over the prompts (``_run``) with the launch counters
     zeroed just before and read just after; print the path's numbers
     (device-to-host copies per round, target forwards per emitted token
@@ -865,7 +896,8 @@ def _drive(phase, eng, prompts, sps, dev, needs=None, stagger=False):
     every kernel of ``needs`` (default: those PATH_OF assigns to this path)
     launched and every request drained.  Host ms per round in the copies
     and decision rules (``_HostClock``) ride along.  Returns (token lists,
-    launches)."""
+    launches); ``report``, a dict, receives the run's wall seconds and
+    tokens/s."""
     from repro_torch.kernels import _lib
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -879,6 +911,8 @@ def _drive(phase, eng, prompts, sps, dev, needs=None, stagger=False):
     launches = dict(_lib.launches)
     outs = [o.tolist() for o in outs]
     emitted = sum(len(o) for o in outs)
+    if report is not None:
+        report.update(wall_s=wall, tokens_per_s=emitted / wall)
     t_stats, d_stats = eng.pool_stats()
     t_forwards = fwd.calls
     emit(phase=phase, requests=len(outs), prompt_lens=[len(p) for p in prompts],
@@ -990,8 +1024,10 @@ def phase_sampled_path(dev, pair, fp_outs):
     target, draft, prompts = pair
     sps = [_sampled(i) if i % 2 == 0 else SamplingParams(max_tokens=32)
            for i in range(len(prompts))]
-    outs, launches = _drive("sampled_path", Engine(target, draft, EngineConfig(), device=dev),
-                            prompts, sps, dev, needs=MAIN_KERNELS)
+    with _DecisionLog() as log:
+        outs, launches = _drive("sampled_path",
+                                Engine(target, draft, EngineConfig(), device=dev),
+                                prompts, sps, dev, needs=MAIN_KERNELS)
     _check_rotations("sampled_path", launches, target.cfg.n_layers)
     greedy = [i for i in range(len(prompts)) if i % 2]
     rows = _compare_rows(target, [prompts[i] for i in greedy], [outs[i] for i in greedy],
@@ -1004,7 +1040,7 @@ def phase_sampled_path(dev, pair, fp_outs):
         raise AssertionError(f"sampled path: greedy rows differ from the main path beyond a "
                              f"near-tie: {bad}")
     _replay_equal("sampled_path", dev, pair, EngineConfig(), sps, outs)
-    return sps
+    return sps, outs, log
 
 
 def phase_sampled_tree_path(dev, pair):
@@ -1104,7 +1140,7 @@ def phase_wdos_path(dev, pair):
     _compare_decisions("wdos_path", target, prompts, sps, outs, twin, log, log_twin,
                        ["none"] * len(prompts))
     _replay_equal("wdos_path", dev, pair, cfg, sps, outs, stagger=True)
-    return sps
+    return sps, outs
 
 
 def phase_wdos_tree_path(dev, pair, tree_sps, tree_outs, tree_log):
@@ -1673,6 +1709,420 @@ def phase_pool_bytes(dev, pair):
             raise AssertionError(f"pool_bytes {budget}: int8 holds no more than fp: {fp} {i8}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 16-18: a QAT-compressed draft, observability, the HTTP front end
+# ---------------------------------------------------------------------------
+
+# the engine's 25 metric families, the batcher's 6 and the flight
+# recorder's anomalies_total: what the JAX engine's registry renders
+# (tests/test_torch_observability.py holds the port's registry to it)
+REFERENCE_FAMILIES = (
+    "requests_submitted_total", "steps_total", "tokens_emitted_total", "tokens_drafted_total",
+    "tokens_accepted_total", "table_upload_seconds_total", "acceptance_rate", "queue_depth",
+    "active_requests", "pool_pages", "kv_bytes_total", "kv_bytes_per_token", "ttft_seconds",
+    "itl_seconds", "round_wall_seconds", "admission_wait_seconds", "round_acceptance",
+    "tree_nodes_total", "tree_branches_total", "tree_accept_depth", "tree_compactions_total",
+    "prefix_hit_rate", "shared_pages", "prefill_tokens_saved_total", "prefix_cow_total",
+    "rounds_total", "requests_finished_total", "fused_slots_total", "fused_rows_total",
+    "fused_wall_seconds_total", "wdos_modeled_seconds_total", "anomalies_total",
+)
+LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def _dense_linears(lp, cfg):
+    """A dense layer's seven linears as (K, N) weights, in the shapes
+    ``quantized_lm.bvq_compress_layer`` compresses them."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    a, m = lp["attn"], lp["mlp"]
+    return {"wq": a["wq"].reshape(d, h * hd), "wk": a["wk"].reshape(d, kv * hd),
+            "wv": a["wv"].reshape(d, kv * hd), "wo": a["wo"].reshape(h * hd, d),
+            "w_gate": m["w_gate"], "w_up": m["w_up"], "w_down": m["w_down"]}
+
+
+def phase_qat_draft_path(dev, pair, fp_outs):
+    """A draft compressed with quantization-aware refinement: a dense
+    LLaMA-68M-width draft (made from SEED + 1) compressed twice on the
+    card, with the pair's k-means-only settings (``PAIR_BVQ``) and with
+    the same k-means settings plus the reference's ``BVQConfig()`` QAT
+    defaults (60 Gumbel-softmax steps, lr 5e-2, tau 2.0 -> 0.2, INT4
+    codebooks).  Prints each compression's seconds and each of the 14
+    linears' reconstruction MSE under both; then serves the main path's 4
+    greedy requests with the QAT draft and the main path's target: bvq
+    launches, each row equals the main path's except at a near-tie (the
+    draft changes only acceptance), and the acceptance is printed."""
+    from repro_torch.configs.paper_pair import DLM
+    from repro_torch.core import bvq as bvq_mod
+    from repro_torch.launch.serve import PAIR_BVQ
+    from repro_torch.models import lm
+    from repro_torch.serving import quantized_lm as qlm
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams, ServingModel
+
+    target, draft, prompts = pair
+    dense = lm.init_lm(torch.Generator(device=dev).manual_seed(SEED + 1), DLM, dev)
+    qat_cfg = dataclasses.replace(PAIR_BVQ, qat_steps=bvq_mod.BVQConfig().qat_steps)
+    compressed, seconds = {}, {}
+    for name, bcfg in (("kmeans", PAIR_BVQ), ("qat", qat_cfg)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        compressed[name] = qlm.bvq_compress_lm(dense, DLM, bcfg,
+                                               torch.Generator(device=dev).manual_seed(7))
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+    mse = []
+    for i, lp in enumerate(dense["layers"]):
+        for lin, w in _dense_linears(lp, DLM).items():
+            row = {"layer": i, "linear": lin, "shape": list(w.shape)}
+            for name, params in compressed.items():
+                c = params["layers"][i][lin]
+                rec = bvq_mod.reconstruct_dense(c["cb"], c["idx"])
+                row[f"mse_{name}"] = float(((rec - w.float()) ** 2).mean())
+            row["ratio"] = row["mse_qat"] / row["mse_kmeans"]
+            mse.append(row)
+    if not all(math.isfinite(r["mse_qat"]) for r in mse):
+        raise AssertionError(f"qat draft: a non-finite reconstruction error: {mse}")
+    emit(phase="qat_draft_compress", seconds=seconds, qat_steps=qat_cfg.qat_steps,
+         linears=len(mse), mse=mse,
+         mean_ratio=float(np.mean([r["ratio"] for r in mse])))
+    qat_draft = ServingModel(cfg=DLM, params=compressed["qat"], mode="bvq", s_max=draft.s_max,
+                             device=dev)
+    del compressed, dense
+    sp = SamplingParams(max_tokens=32)
+    report = {}
+    outs, launches = _drive("qat_draft_path",
+                            Engine(target, qat_draft, EngineConfig(), device=dev), prompts,
+                            sp, dev, needs=MAIN_KERNELS, report=report)
+    _check_rotations("qat_draft_path", launches, target.cfg.n_layers)
+    _compare_decisions("qat_draft_path", target, prompts, [sp] * len(prompts), outs, fp_outs,
+                       None, None, ["none"] * len(prompts))
+    return launches
+
+
+def _device_programs(tracer):
+    return {e["name"] for e in tracer.events() if e["track"] == "device"}
+
+
+def _observed(phase, dev, pair, cfg, sps, want, stagger, needs):
+    """One path's engine with a ``Tracer`` and ``profile_every_n=1``: its
+    rows must equal ``want`` bitwise (unless ``want`` is None), the trace
+    must validate, the device track must name every program the profiler
+    bracketed, and the flight recorder must hold one record per round.
+    Prints profile_summary() with each program's achieved bytes/s against
+    the card's memory rate (its bytes are the mean of the calls' own
+    counts, so bytes * calls / wall is the calls' rate).  Returns
+    (launches, profile_summary, engine, rows)."""
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.tracing import Tracer, validate_chrome_trace
+
+    target, draft, prompts = pair
+    tracer = Tracer()
+    eng = Engine(target, draft, dataclasses.replace(cfg, profile_every_n=1), device=dev,
+                 trace=tracer)
+    outs, launches = _drive(phase, eng, prompts, sps, dev, needs=needs, stagger=stagger)
+    same = [a == b for a, b in zip(outs, want if want is not None else outs)]
+    problems = validate_chrome_trace(tracer.to_chrome_trace())
+    prof = eng.profile_summary()
+    steps = eng.summary()["steps"]
+    flight = eng.flight_snapshot()
+    emit(phase=f"{phase}_profile", rows_equal_to_unprofiled=f"{sum(same)}/{len(same)}",
+         trace_events=len(tracer.events()), trace_problems=problems[:5],
+         flight_rounds=flight["rounds_recorded"], steps=steps,
+         anomalies=flight["anomalies"],
+         programs={k: dict(v, wall_ms_per_call=v["wall_s"] * 1e3 / v["calls"],
+                           achieved_bytes_per_s=v["bytes"] * v["calls"] / v["wall_s"],
+                           share_of_memory_rate=v["bytes"] * v["calls"] / v["wall_s"]
+                           / HBM_BYTES_PER_S)
+                   for k, v in prof.items()})
+    if not all(same):
+        raise AssertionError(f"{phase}: profiled rows differ from the unprofiled run: {same}")
+    if problems:
+        raise AssertionError(f"{phase}: invalid trace: {problems[:5]}")
+    if _device_programs(tracer) != set(prof):
+        raise AssertionError(f"{phase}: device track {_device_programs(tracer)} against "
+                             f"profiled programs {set(prof)}")
+    if flight["rounds_recorded"] != steps:
+        raise AssertionError(f"{phase}: {flight['rounds_recorded']} flight records for "
+                             f"{steps} rounds")
+    return launches, prof, eng, outs
+
+
+def phase_observed_path(dev, pair, fp_outs, wdos_sps, wdos_outs):
+    """The main path's engine and then the WDOS path's (``adaptive=True,
+    par_mode="wdos"``, staggered, requests 0 and 2 sampled) with a Tracer
+    and ``profile_every_n=1`` (``_observed``): the main path's device
+    track must hold prefill, draft and verify, the WDOS path's fused_wdos
+    and draft_slot.  Then, for the overlap question, a two-phase engine at
+    a fixed draft length of the WDOS engine's ``long_dl`` (greedy main-path
+    requests, staggered; each row equals the main path's except at a
+    near-tie): its verify scores the same (max_batch, long_dl + 1) window
+    a ``fused_wdos`` slot does, so ``fused_wdos`` wall per call is printed
+    beside that verify plus draft_slot.  The WDOS registry must render
+    every family the JAX engine's registry renders.  Last, the main path
+    with the tracer on and profiling off beside a plain run, tokens/s each
+    (reported)."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.serving.tracing import Tracer
+
+    target, draft, prompts = pair
+    sp = SamplingParams(max_tokens=32)
+    launches, main_prof, _, _ = _observed("observed_path", dev, pair, EngineConfig(),
+                                          [sp] * len(prompts), fp_outs, False, MAIN_KERNELS)
+    _check_rotations("observed_path", launches, target.cfg.n_layers)
+    wdos_cfg = EngineConfig(adaptive=True, par_mode="wdos")
+    _, wdos_prof, eng, _ = _observed("observed_wdos_path", dev, pair, wdos_cfg, wdos_sps,
+                                     wdos_outs, True, MAIN_KERNELS)
+    wide = [sp] * len(prompts)
+    _, wide_prof, _, wide_outs = _observed("observed_wide_verify_path", dev, pair,
+                                           EngineConfig(draft_len=wdos_cfg.long_dl), wide, None,
+                                           True, MAIN_KERNELS)
+    _compare_decisions("observed_wide_verify_path", target, prompts, wide, wide_outs, fp_outs,
+                       None, None, ["none"] * len(prompts))
+    for name, prof, want in (("observed_path", main_prof, {"prefill", "draft", "verify"}),
+                             ("observed_wdos_path", wdos_prof,
+                              {"prefill", "fused_wdos", "draft_slot"})):
+        if not want <= set(prof):
+            raise AssertionError(f"{name}: programs {set(prof)} lack {want - set(prof)}")
+
+    def per_call(prof, k):
+        return prof[k]["wall_s"] * 1e3 / prof[k]["calls"]
+
+    emit(phase="observed_overlap", window=wdos_cfg.max_dl + 1, rows=wdos_cfg.max_batch,
+         fused_wdos_ms=per_call(wdos_prof, "fused_wdos"),
+         verify_ms=per_call(wide_prof, "verify"),
+         draft_slot_ms=per_call(wdos_prof, "draft_slot"),
+         fused_over_verify_plus_draft=per_call(wdos_prof, "fused_wdos")
+         / (per_call(wide_prof, "verify") + per_call(wdos_prof, "draft_slot")),
+         main_path_verify_ms=per_call(main_prof, "verify"))
+    text = eng.metrics.render()
+    rendered = {ln.split()[2] for ln in text.splitlines() if ln.startswith("# TYPE")}
+    missing = [f for f in REFERENCE_FAMILIES if f"serving_{f}" not in rendered]
+    emit(phase="observed_metrics", families=len(rendered), reference_families=len(
+        REFERENCE_FAMILIES), missing=missing)
+    if missing:
+        raise AssertionError(f"observed path: /metrics lacks {missing}")
+    plain, traced = {}, {}
+    _drive("observed_plain_main_path", Engine(target, draft, EngineConfig(), device=dev),
+           prompts, sp, dev, needs=MAIN_KERNELS, report=plain)
+    _drive("observed_traced_main_path", Engine(target, draft, EngineConfig(), device=dev,
+                                               trace=Tracer()),
+           prompts, sp, dev, needs=MAIN_KERNELS, report=traced)
+    emit(phase="observed_tracer_cost", plain_tokens_per_s=plain["tokens_per_s"],
+         traced_tokens_per_s=traced["tokens_per_s"],
+         ratio=traced["tokens_per_s"] / plain["tokens_per_s"], gated=False)
+    return launches
+
+
+def phase_server_path(dev, pair, fp_outs, sampled_sps, sampled_outs, sampled_log):
+    """The HTTP front end on the card: ``CompletionServer(AsyncEngine(
+    Engine(pair, EngineConfig())))`` on 127.0.0.1, port 0, four concurrent
+    completions through the shared client (requests 1 and 3 of the main
+    path streamed over SSE, request 2 as one JSON response, request 0
+    sampled with the sampled path's parameters): each row must equal the
+    main / sampled path's except at a near-tie (decision rule for the
+    sampled row).  Then a fifth streamed request disconnects after 4
+    tokens; eight decoding and two queued streams saturate the gate and a
+    ``wait: false`` request must answer 429; the streams disconnect, every
+    page returns (free pages end where they started), and /healthz,
+    /stats and /metrics answer 200.  Prints HTTP tokens/s beside
+    ``Engine.run`` of the same four requests just before it, and the TTFT
+    / ITL means."""
+    import asyncio
+
+    from repro_torch.kernels import _lib
+    from repro_torch.serving import http_client as hc
+    from repro_torch.serving.async_engine import AsyncEngine
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.serving.server import CompletionServer
+
+    target, draft, prompts = pair
+    # the index-less device, as the server CLI passes it: the AsyncEngine's
+    # worker thread must make the engine's resolved index current
+    eng = Engine(target, draft, EngineConfig(), device="cuda")
+    max_queued = 2
+    sp0 = sampled_sps[0]
+    sps = [sp0] + [SamplingParams(max_tokens=32)] * (len(prompts) - 1)
+    direct = {}
+    _drive("server_path_engine_run", Engine(target, draft, EngineConfig(), device=dev), prompts,
+           sps, dev, needs=MAIN_KERNELS, report=direct)
+    rows = {}
+
+    async def stats(port):
+        status, _, body = await hc.request(port, "GET", "/stats")
+        if status != 200:
+            raise AssertionError(f"server path: /stats answered {status}")
+        return json.loads(body)
+
+    async def drained(port):
+        for _ in range(600):
+            st = await stats(port)
+            if st["active"] == 0 and st["queued"] == 0 and st["target_pool"]["used_pages"] == 0:
+                return st
+            await asyncio.sleep(0.05)
+        raise AssertionError(f"server path: pages did not return: {st}")
+
+    async def scenario():
+        server = CompletionServer(AsyncEngine(eng, max_queued=max_queued))
+        await server.start("127.0.0.1", 0)
+        task = asyncio.ensure_future(server.serve_forever())
+        try:
+            port = server.port
+            start = await stats(port)
+
+            async def sse(i):
+                status, _, chunks = await hc.sse_request(
+                    port, {"prompt": prompts[i].tolist(), "max_tokens": 32})
+                if status != 200:
+                    raise AssertionError(f"server path: request {i} answered {status}")
+                rows[i] = [c["token"] for c in chunks if c["token"] is not None]
+
+            async def whole(i, payload):
+                status, _, body = await hc.request(port, "POST", "/v1/completions", dict(
+                    payload, prompt=prompts[i].tolist(), max_tokens=32))
+                if status != 200:
+                    raise AssertionError(f"server path: request {i} answered {status}")
+                rows[i] = json.loads(body)["token_ids"]
+
+            t0 = time.perf_counter()
+            await asyncio.gather(
+                whole(0, {"temperature": sp0.temperature, "top_k": sp0.top_k,
+                          "top_p": sp0.top_p, "seed": sp0.seed}),
+                sse(1), whole(2, {}), sse(3))
+            wall = time.perf_counter() - t0
+            # a fifth stream hangs up after 4 tokens
+            reader, writer = await hc.open_request(port, "POST", "/v1/completions", {
+                "prompt": prompts[0].tolist(), "max_tokens": 32, "stream": True})
+            await hc.read_head(reader)
+            for _ in range(4):
+                await reader.readuntil(b"\n\n")
+            writer.close()
+            await drained(port)
+            # saturate: max_batch decoding + max_queued waiting, then fail fast
+            hogs = [await hc.open_request(port, "POST", "/v1/completions", {
+                "prompt": prompts[i % len(prompts)].tolist(), "max_tokens": 64,
+                "stream": True}) for i in range(eng.cfg.max_batch + max_queued)]
+            for _ in range(600):
+                if (await stats(port))["pending_admission"] == max_queued:
+                    break
+                await asyncio.sleep(0.05)
+            status_429, _, _ = await hc.request(port, "POST", "/v1/completions", {
+                "prompt": prompts[1].tolist(), "max_tokens": 4, "wait": False})
+            for _, w in hogs:
+                w.close()
+            end = await drained(port)
+            codes = {path: (await hc.request(port, "GET", path))[0]
+                     for path in ("/healthz", "/stats", "/metrics")}
+            return wall, start, end, status_429, codes
+        finally:
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                pass
+            await server.stop()
+
+    _lib.launches.clear()
+    torch.cuda.synchronize()
+    with _DecisionLog() as log:
+        wall, start, end, status_429, codes = asyncio.run(scenario())
+    launches = dict(_lib.launches)
+    got = [rows[i] for i in range(len(prompts))]
+    want = [sampled_outs[0]] + list(fp_outs[1:])
+    # the sampled row's decisions, under the sampled path's request id
+    srv_rid = next(iter(log.events), None)
+    log.events = {0: log.events[srv_rid]} if srv_rid is not None else {}
+    m = eng.metrics
+    emit(phase="server_path", emitted=sum(len(r) for r in got), wall_s=wall,
+         http_tokens_per_s=sum(len(r) for r in got) / wall,
+         engine_run_tokens_per_s=direct["tokens_per_s"],
+         http_over_engine_run=sum(len(r) for r in got) / wall / direct["tokens_per_s"],
+         ttft_mean_s=m.get("ttft_seconds").sum_value() / max(m.value("ttft_seconds"), 1),
+         itl_mean_s=m.get("itl_seconds").sum_value() / max(m.value("itl_seconds"), 1),
+         status_429=status_429, codes=codes,
+         free_pages_start=[start["target_pool"]["free_pages"], start["draft_pool"]["free_pages"]],
+         free_pages_end=[end["target_pool"]["free_pages"], end["draft_pool"]["free_pages"]],
+         launches=launches)
+    _compare_decisions("server_path", target, prompts, sps, got, want, log, sampled_log,
+                       ["none"] * len(prompts))
+    if status_429 != 429 or any(c != 200 for c in codes.values()):
+        raise AssertionError(f"server path: status codes 429={status_429}, {codes}")
+    for pool in ("target_pool", "draft_pool"):
+        if end[pool]["free_pages"] != start[pool]["free_pages"]:
+            raise AssertionError(f"server path: {pool} free pages {start[pool]['free_pages']} "
+                                 f"-> {end[pool]['free_pages']}")
+    missing = [k for k in ("w4a8_matmul", "block_rotate", "bvq_matmul", "paged_attention")
+               if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"server path did not launch {missing}")
+    _server_cli()
+    return launches
+
+
+def _server_cli(timeout_s: float = 300.0):
+    """``python -m repro_torch.serving.server --port 0`` as a user starts
+    it, with its defaults (device cuda, the quantized smoke pair, its
+    EngineConfig): one streamed completion must equal ``Engine.run`` of
+    the same request on the pair and config the CLI builds, made here, and
+    /healthz must answer 200.  The process is stopped after, pass or
+    fail."""
+    import asyncio
+    import queue
+    import threading
+
+    from repro_torch.launch.serve import build_pair
+    from repro_torch.serving import http_client as hc
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    prompt = np.arange(5, 17, dtype=np.int32)
+    sp = SamplingParams(max_tokens=16)
+    target, draft = build_pair(seed=0, s_max=256, quantize=True, device="cuda")
+    outs, _ = Engine(target, draft, EngineConfig(max_batch=4, page_size=16),
+                     device="cuda").run([prompt], sp)
+    want = outs[0].tolist()
+    del target, draft
+    env = dict(os.environ, PYTHONUNBUFFERED="1", PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "repro_torch.serving.server", "--port", "0"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True).start()
+    try:
+        port, seen = None, []
+        while port is None and time.perf_counter() - t0 < timeout_s:
+            try:
+                line = lines.get(timeout=1.0)
+            except queue.Empty:
+                if proc.poll() is not None:
+                    break
+                continue
+            seen.append(line)
+            if "listening on http://" in line:
+                port = int(line.split("listening on http://")[1].split()[0].rsplit(":", 1)[1])
+        if port is None:
+            raise AssertionError(f"server CLI did not start: {''.join(seen)[-2000:]}")
+        startup = time.perf_counter() - t0
+
+        async def ask():
+            status, _, chunks = await hc.sse_request(port, {"prompt": prompt.tolist(),
+                                                            "max_tokens": sp.max_tokens})
+            health = (await hc.request(port, "GET", "/healthz"))[0]
+            return status, [c["token"] for c in chunks if c["token"] is not None], health
+
+        status, got, health = asyncio.run(ask())
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    emit(phase="server_cli", startup_s=startup, status=status, healthz=health,
+         equal=got == want, emitted=len(got))
+    if status != 200 or health != 200 or got != want:
+        raise AssertionError(f"server CLI: status {status}, /healthz {health}, "
+                             f"tokens {got} against Engine.run {want}")
+
+
 def _paged_greedy(target, prompt, n):
     """Target-only greedy decode through the engine's own paged path: the
     dense prefill of prompt[:-1] scattered into a one-request fp store,
@@ -1781,11 +2231,11 @@ def main(argv=None) -> int:
     launches["main_path"], pair, fp_outs = phase_main_path(dev, SEED)
     launches["int8_path"], int8_outs = phase_int8_path(dev, pair, fp_outs)
     launches["tree_path"] = phase_tree_path(dev, pair, fp_outs, int8_outs)
-    sampled_sps = phase_sampled_path(dev, pair, fp_outs)
+    sampled_sps, sampled_outs, sampled_log = phase_sampled_path(dev, pair, fp_outs)
     sampled_tree_sps, sampled_tree_outs, sampled_tree_log = phase_sampled_tree_path(dev, pair)
     phase_stop_path(dev, pair, fp_outs)
     phase_adaptive_path(dev, pair, fp_outs)
-    wdos_sps = phase_wdos_path(dev, pair)
+    wdos_sps, wdos_outs = phase_wdos_path(dev, pair)
     wdos_tree_cfg = phase_wdos_tree_path(dev, pair, sampled_tree_sps, sampled_tree_outs,
                                          sampled_tree_log)
     del sampled_tree_log
@@ -1793,6 +2243,11 @@ def main(argv=None) -> int:
     launches["prefix_path"] = phase_prefix_path(dev, pair)
     launches["prefix_mixed_tree_path"] = phase_prefix_mixed_tree_path(dev, pair)
     phase_pool_bytes(dev, pair)
+    launches["qat_draft_path"] = phase_qat_draft_path(dev, pair, fp_outs)
+    launches["observed_path"] = phase_observed_path(dev, pair, fp_outs, wdos_sps, wdos_outs)
+    launches["server_path"] = phase_server_path(dev, pair, fp_outs, sampled_sps, sampled_outs,
+                                                sampled_log)
+    del sampled_log
     if args.profile:
         from repro_torch.serving.engine import EngineConfig, SamplingParams
 

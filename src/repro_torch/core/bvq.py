@@ -3,16 +3,20 @@ counterpart of repro/core/bvq.py; see there for the paper mapping).
 
 Each block of ``block_cols`` output channels owns a private codebook of
 ``codebook_size`` vectors of length ``vec_dim`` cut along the input dim.
-This port carries the k-means-only compressor (``qat_steps=0``, the setting
-``launch/serve.build_pair`` uses): Lloyd's algorithm with k-means++ seeding,
-batched over blocks, drawing from an explicit ``torch.Generator``.  Its
-random bits differ from ``jax.random``'s, so its codebooks differ from the
-reference's while reaching the same reconstruction quality."""
+The compressor runs Lloyd's algorithm with k-means++ seeding and then, for
+``qat_steps > 0``, refines codebooks and assignments jointly (INT4
+straight-through codebooks, Gumbel-softmax assignments, ``_qat_refine``).
+Both are batched over blocks and draw from an explicit ``torch.Generator``
+on the weight's device.  Its random bits differ from ``jax.random``'s, so
+its codebooks differ from the reference's while reaching the same
+reconstruction quality; fed the same noise, the refinement follows the
+reference's step for step."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import quantization as q
@@ -110,10 +114,81 @@ def kmeans(
     return cent, assign
 
 
+def _hard_touch_up(vectors: torch.Tensor, cb: torch.Tensor, assign: torch.Tensor) -> torch.Tensor:
+    """One Lloyd update of the (nb, C, v) centroids against the hard
+    (nb, V) assignments; a centroid no vector picked keeps its value."""
+    nb, k, dim = cb.shape
+    counts = torch.zeros((nb, k), dtype=vectors.dtype, device=vectors.device)
+    counts.scatter_add_(1, assign, torch.ones_like(assign, dtype=vectors.dtype))
+    sums = torch.zeros_like(cb)
+    sums.scatter_add_(1, assign[..., None].expand(-1, -1, dim), vectors)
+    return torch.where(counts[..., None] > 0, sums / torch.clamp(counts[..., None], min=1.0), cb)
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+def _gumbel(shape, gen: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel noise, -log(-log(u)) with u in [tiny, 1), drawn on
+    ``device`` from ``gen``."""
+    u = torch.rand(shape, generator=gen, device=device).clamp_min(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def _qat_refine(
+    vectors: torch.Tensor,  # (nb, V, v)
+    cent: torch.Tensor,  # (nb, C, v)
+    cfg: BVQConfig,
+    gen: Optional[torch.Generator] = None,
+    noise: Optional[Sequence[torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Jointly refine each block's codebook (INT4 straight-through) and
+    assignments (Gumbel-softmax over logits started at the negative squared
+    distances, scaled by their per-block std) with a hand-rolled Adam over
+    ``qat_steps`` steps, the temperature annealed geometrically from
+    ``tau_start`` to ``tau_end``; then one Lloyd touch-up of the centroids
+    against the hard (argmax) assignments.
+
+    Batched over blocks as the reference is vmapped: the loss is the SUM
+    over blocks of each block's mean squared reconstruction error, so each
+    block's gradient is the one its own loss gives.  Step i's (nb, V, C)
+    Gumbel noise is ``noise[i]`` when given (the parity tests pass the
+    reference's draws), else drawn from ``gen`` on the vectors' device.
+    Returns (centroids (nb, C, v), assignments (nb, V), final logits)."""
+    logits = -_sq_dists(vectors, cent)
+    logits = logits / (torch.std(logits, dim=(1, 2), keepdim=True, correction=0) + 1e-6)
+    params = [logits, cent.clone()]
+    mom = [torch.zeros_like(p) for p in params]
+    vel = [torch.zeros_like(p) for p in params]
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    ratio = np.float32(cfg.tau_end / cfg.tau_start)
+    span = np.float32(max(cfg.qat_steps - 1, 1))
+    for i in range(cfg.qat_steps):
+        # the schedule and the bias corrections in float32, as the reference
+        # computes them from its int32 step counter
+        tau = _f32(np.float32(cfg.tau_start) * ratio ** (np.float32(i) / span))
+        gumbel = noise[i] if noise is not None else _gumbel(logits.shape, gen, vectors.device)
+        lg, cb = (p.detach().requires_grad_(True) for p in params)
+        cbq = q.fake_quant_weight(cb, bits=cfg.codebook_bits, axis=(1, 2))
+        soft = torch.softmax((lg + gumbel) / tau, dim=-1)  # (nb, V, C)
+        loss = ((torch.bmm(soft, cbq) - vectors) ** 2).mean(dim=(1, 2)).sum()
+        grads = torch.autograd.grad(loss, (lg, cb))
+        t = np.float32(i + 1)
+        c1, c2 = _f32(1 - np.float32(b1) ** t), _f32(1 - np.float32(b2) ** t)
+        with torch.no_grad():
+            for j, g in enumerate(grads):
+                mom[j] = b1 * mom[j] + (1 - b1) * g
+                vel[j] = b2 * vel[j] + (1 - b2) * g * g
+                params[j] = params[j] - cfg.qat_lr * (mom[j] / c1) / (torch.sqrt(vel[j] / c2) + eps)
+    logits, cb = params
+    assign = torch.argmax(logits, dim=-1)
+    return _hard_touch_up(vectors, cb, assign), assign, logits
+
+
 def bvq_compress(w: torch.Tensor, cfg: BVQConfig, gen: torch.Generator) -> BVQWeight:
-    """Compress a (K, N) weight into per-block codebooks + indices."""
-    if cfg.qat_steps != 0:
-        raise NotImplementedError("the port compresses with k-means only (qat_steps=0)")
+    """Compress a (K, N) weight into per-block codebooks + indices: k-means,
+    then ``qat_steps`` of QAT refinement when it is positive."""
     k_dim, n_dim = w.shape
     assert k_dim % cfg.vec_dim == 0, (k_dim, cfg.vec_dim)
     assert n_dim % cfg.block_cols == 0, (n_dim, cfg.block_cols)
@@ -122,6 +197,8 @@ def bvq_compress(w: torch.Tensor, cfg: BVQConfig, gen: torch.Generator) -> BVQWe
     wb = w.float().reshape(rows, cfg.vec_dim, nb, cfg.block_cols)
     wb = wb.permute(2, 0, 3, 1).reshape(nb, rows * cfg.block_cols, cfg.vec_dim)
     cent, assign = kmeans(wb, cfg.codebook_size, cfg.kmeans_iters, gen)
+    if cfg.qat_steps > 0:
+        cent, assign, _ = _qat_refine(wb, cent, cfg, gen)
     cbq, scale = q.quantize_weight_int(cent, bits=cfg.codebook_bits, axis=(1, 2))
     return BVQWeight(
         codebooks=cbq,

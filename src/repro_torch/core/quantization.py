@@ -1,7 +1,8 @@
 """W4A8 quantization substrate (torch counterpart of repro/core/quantization.py).
 
 INT4 per-output-channel symmetric weights, INT8 dynamic per-token
-activations, nibble packing.  ``torch.round`` rounds half to even like
+activations, nibble packing, and the straight-through fake quantizers of
+QAT.  ``torch.round`` rounds half to even like
 ``jnp.round``, and the scale is applied by true division ``x / s`` (a
 reciprocal multiply would flip roundings at .5 boundaries), so the integer
 outputs are bit-identical to the reference on identical inputs."""
@@ -14,6 +15,8 @@ import torch
 __all__ = [
     "quantize_act_int8",
     "quantize_weight_int",
+    "fake_quant_act",
+    "fake_quant_weight",
     "pack_int4",
     "unpack_int4",
     "sqnr_db",
@@ -48,6 +51,23 @@ def quantize_weight_int(
     s = _absmax_scale(wf, axis, qmax)
     q = torch.clamp(torch.round(wf / s), -qmax, qmax)
     return q.to(torch.int8), s
+
+
+def fake_quant_act(x: torch.Tensor, axis: Axis = -1) -> torch.Tensor:
+    """Straight-through INT8 fake-quant (QAT): the forward value is the
+    quantized ``x``, the gradient passes through as identity."""
+    s = _absmax_scale(x.detach(), axis, INT8_QMAX)
+    q = torch.clamp(torch.round(x / s), -INT8_QMAX, INT8_QMAX) * s
+    return x + (q - x).detach()
+
+
+def fake_quant_weight(w: torch.Tensor, bits: int = 4, axis: Axis = 0) -> torch.Tensor:
+    """Straight-through INT<bits> fake-quant (QAT), scale per reduced
+    ``axis`` taken from the detached ``w``."""
+    qmax = (1 << (bits - 1)) - 1
+    s = _absmax_scale(w.detach(), axis, qmax)
+    q = torch.clamp(torch.round(w / s), -qmax, qmax) * s
+    return w + (q - w).detach()
 
 
 def pack_int4(q: torch.Tensor, axis: int = 0) -> torch.Tensor:

@@ -1,5 +1,8 @@
-"""Builders for the paper's serving pair, and the target-only greedy
-reference decode (torch counterpart of repro/launch/serve.py).
+"""Builders for the paper's serving pair, the target-only greedy
+reference decode, and the serving driver (torch counterpart of
+repro/launch/serve.py)::
+
+    python -m repro_torch.launch.serve --mode apsd --check [--device cpu]
 
 ``build_pair`` builds the smoke-scale pair (TLM_SMOKE quantized to W4A8
 with the LRU rotation, DLM_SMOKE compressed with BVQ); ``build_paper_pair``
@@ -13,18 +16,24 @@ Weights are random, drawn from a ``torch.Generator`` seeded by ``seed`` on
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import time
 from typing import List, Tuple
 
 import torch
 
 from repro_torch.configs.paper_pair import DLM, DLM_SMOKE, TLM, TLM_SMOKE
 from repro_torch.core import bvq as bvq_mod
+from repro_torch.core import prng
+from repro_torch.core.apsd import APSDConfig
+from repro_torch.core.speculative import SDConfig
 from repro_torch.models import lm
 from repro_torch.serving import quantized_lm as qlm
-from repro_torch.serving.engine import ServingModel, make_interface
+from repro_torch.serving.engine import ServingModel, make_interface, serve_apsd, serve_sd
 
-__all__ = ["PAIR_BVQ", "build_pair", "build_paper_pair", "greedy_reference", "to_device"]
+__all__ = ["PAIR_BVQ", "build_pair", "build_paper_pair", "greedy_reference", "main",
+           "to_device"]
 
 # the draft's compression settings (as in the reference's build_pair)
 PAIR_BVQ = bvq_mod.BVQConfig(
@@ -109,3 +118,55 @@ def greedy_reference(target: ServingModel, prompt, n: int) -> List[int]:
         cur = torch.argmax(lg[:, -1], dim=-1).to(torch.int32).reshape(1, 1)
         out.append(int(cur))
     return out
+
+
+def main(argv=None) -> int:
+    """Decode one prompt with the smoke pair: ``ad`` (the target alone),
+    ``sd`` (fixed draft length) or ``apsd`` (adaptive); ``--check`` asserts
+    that the speculative output equals the target's own greedy decode."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", choices=["sd", "apsd", "ad"], default="apsd")
+    ap.add_argument("--tokens", type=int, default=48)
+    ap.add_argument("--draft-len", type=int, default=4)
+    ap.add_argument("--no-quant", action="store_true")
+    ap.add_argument("--check", action="store_true", help="assert losslessness")
+    ap.add_argument("--device", default="cuda", help="torch device (cuda, or cpu)")
+    args = ap.parse_args(argv)
+
+    target, draft = build_pair(quantize=not args.no_quant, device=args.device)
+    prompt = torch.tensor([[5, 17, 3, 99]], dtype=torch.int32)
+    key = prng.PRNGKey(0)
+
+    t0 = time.time()
+    if args.mode == "ad":
+        toks = greedy_reference(target, prompt, args.tokens)
+        stats = None
+    elif args.mode == "sd":
+        toks, stats = serve_sd(
+            key, target, draft, prompt,
+            SDConfig(draft_len=args.draft_len, temperature=0.0, max_tokens=args.tokens),
+        )
+    else:
+        toks, stats = serve_apsd(
+            key, target, draft, prompt,
+            APSDConfig(short_dl=2, long_dl=6, temperature=0.0, max_tokens=args.tokens),
+        )
+    toks = [int(t) for t in toks]
+    dt = time.time() - t0
+    print(f"mode={args.mode} tokens={len(toks)} wall={dt:.2f}s")
+    print("output:", toks)
+    if stats is not None:
+        if hasattr(stats, "acceptance_rate"):
+            print(f"acceptance={float(stats.acceptance_rate):.3f}")
+        else:
+            print(f"rejected_ratio={stats.rejected_ratio:.3f} "
+                  f"par_rounds={stats.par_rounds}/{stats.rounds}")
+    if args.check and args.mode in ("sd", "apsd"):
+        ref = greedy_reference(target, prompt, args.tokens)
+        assert ref == toks, "speculative output != AD reference"
+        print("LOSSLESS: speculative output == autoregressive reference")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

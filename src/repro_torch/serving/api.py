@@ -9,12 +9,14 @@ repro/serving/api.py).
 * ``RequestOutput`` / ``CompletionOutput`` — the streaming result type.
 * ``EngineConfig`` — engine-wide knobs.  The paged-attention path is not a
   knob here: the device decides (kernel on the card, plain version on the
-  CPU).  A non-default ``profile_every_n`` (device-time profiling, not
-  ported yet) is accepted by the dataclass and refused by ``Engine``.
+  CPU).
+
+``warn_deprecated_once`` backs the deprecated ``serve_*`` wrappers.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import List, Optional, Tuple, Union
 
 __all__ = [
@@ -23,6 +25,7 @@ __all__ = [
     "RequestOutput",
     "EngineConfig",
     "default_detokenize",
+    "warn_deprecated_once",
 ]
 
 
@@ -127,6 +130,7 @@ class EngineConfig:
     # holds more of them); exclusive with num_pages
     pool_bytes: Optional[int] = None
     max_model_len: Optional[int] = None  # peak cache length of a request
+    model_wdos: bool = True  # price each round with the WDOS model (stats)
     # paged-KV storage: "none" (model dtype), "int8" (every request stores
     # int8 pages + one f32 scale per (slot, kv head)) or "mixed" (both
     # stores; each request picks with SamplingParams.kv_quant, default none)
@@ -147,8 +151,16 @@ class EngineConfig:
     # copy-on-write prefix cache: full prompt blocks are shared read-only
     # between requests of one KV kind (serving/prefix_cache.py)
     prefix_cache: bool = False
-    # not ported yet: refused by Engine at any value but the default
-    profile_every_n: int = 0  # sampled device-time profiling
+    # sampled device-time profiling: every Nth engine round each dispatched
+    # program is bracketed by device synchronizations, timed on the engine's
+    # clock and stamped once with its FLOP / byte count (Engine._profiled);
+    # 0 disables.  Timing never changes the math.
+    profile_every_n: int = 0
+    # flight recorder (serving/flight_recorder.py): a ring of per-round
+    # records with anomaly triggers; 0 disables it.  flight_dump_dir, when
+    # set, receives a postmortem JSON file per anomaly.
+    flight_ring: int = 256
+    flight_dump_dir: Optional[str] = None
 
     def __post_init__(self):
         if self.par_mode not in ("off", "wdos"):
@@ -175,6 +187,8 @@ class EngineConfig:
                 raise ValueError(f"pool_bytes must be > 0, got {self.pool_bytes}")
         if self.profile_every_n < 0:
             raise ValueError(f"profile_every_n must be >= 0, got {self.profile_every_n}")
+        if self.flight_ring < 0:
+            raise ValueError(f"flight_ring must be >= 0, got {self.flight_ring}")
 
     @property
     def max_dl(self) -> int:
@@ -207,6 +221,14 @@ class EngineConfig:
             )
         return requested
 
-    def unported(self) -> List[str]:
-        """The non-default settings this port does not carry yet."""
-        return [f"profile_every_n={self.profile_every_n!r}"] if self.profile_every_n else []
+
+_DEPRECATION_EMITTED: set = set()
+
+
+def warn_deprecated_once(name: str, replacement: str) -> None:
+    """Emit a DeprecationWarning for ``name`` at most once per process."""
+    if name in _DEPRECATION_EMITTED:
+        return
+    _DEPRECATION_EMITTED.add(name)
+    warnings.warn(f"{name}() is deprecated; use {replacement}", DeprecationWarning,
+                  stacklevel=3)

@@ -14,7 +14,9 @@ stalls.  Each round also prices
 the dispatched work with the WDOS discrete-event model
 (core/scheduler.py), as the reference does, and under ``par_mode="wdos"``
 each fused slot is counted by kind and priced on its own
-(``record_fused_slot``; ``fused_summary`` reports it).
+(``record_fused_slot``; ``fused_summary`` reports it); ``model_wdos=False``
+skips the pricing.  ``BatchConfig`` holds the knobs of the deprecated
+``serve_batch`` wrapper (serving/engine.py).
 """
 from __future__ import annotations
 
@@ -29,7 +31,31 @@ from repro_torch.serving.paged_cache import PagedKVPool
 from repro_torch.serving.prefix_cache import PrefixCache, PrefixMatch
 from repro_torch.serving.request import DraftController, Request, RequestState
 
-__all__ = ["ContinuousBatcher", "WDOSModelStats"]
+__all__ = ["BatchConfig", "ContinuousBatcher", "WDOSModelStats"]
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchConfig:
+    """Knobs of the deprecated ``serve_batch`` wrapper (new code drives
+    ``Engine`` with ``EngineConfig`` and per-request ``SamplingParams``)."""
+
+    max_batch: int = 8  # concurrent decode slots
+    page_size: int = 16  # tokens per KV page
+    max_tokens: int = 64  # per-request generation budget
+    draft_len: int = 3  # fixed draft window (adaptive=False)
+    adaptive: bool = False  # per-request APSD draft-length adaptation
+    short_dl: int = 2
+    long_dl: int = 6
+    temperature: float = 0.0  # the wrapper serves greedy decoding only
+    num_pages: Optional[int] = None  # page budget per pool (None: fit max_batch)
+    model_wdos: bool = True  # price each round with the WDOS model (stats)
+    # "paged": device-resident pools; "host": the reference's legacy
+    # host-gather loop, not ported (serve_batch raises NotImplementedError)
+    kv_path: str = "paged"
+
+    @property
+    def max_dl(self) -> int:
+        return self.long_dl if self.adaptive else self.draft_len
 
 
 @dataclasses.dataclass
@@ -227,7 +253,7 @@ class ContinuousBatcher:
         loads) depending on the request's final draft compute."""
         self.rounds += 1
         self._m_rounds.inc()
-        if not work:
+        if not self.cfg.model_wdos or not work:
             return
         b = sch.new_builder()
         d_load, d_comp = self.d_costs
@@ -266,6 +292,8 @@ class ContinuousBatcher:
             self._m_fused_rows.labels(role="verify").inc(len(plan.verify_rows))
         program = "verify" if plan.verify_rows else "draft_only"
         self._m_fused_wall.labels(program=program).inc(wall_s)
+        if not self.cfg.model_wdos:
+            return
         b = sch.new_builder()
         sch.mixed_slot_instrs(b, plan, self.t_layers, self.d_layers, self.t_costs,
                               self.d_costs, verify_width, draft_width=draft_width)

@@ -73,8 +73,16 @@ of the prefix, after copying a partially shared last page on write
 (``_prefill_into``); a full hit runs no forward.  Each new full block of a
 prefilled prompt is donated to the tree.
 
-Not ported yet (refused with NotImplementedError): device-time profiling;
-the tracer and the flight recorder are absent.
+Observability (the reference's): the engine's metric families in a
+``MetricsRegistry`` shared with the batcher and the HTTP server; spans and
+instants on a ``Tracer`` (``trace=``, off by default); a ``FlightRecorder``
+of per-round records (``EngineConfig.flight_ring``); and, every
+``profile_every_n``-th round, each dispatched program bracketed by device
+synchronizations and timed on the engine's clock (``_profiled``,
+``profile_summary``).  None of it changes a token.
+
+The deprecated run-to-drain wrappers ``serve_sd``, ``serve_apsd`` and
+``serve_batch`` survive as thin wrappers over ``Engine`` (each warns once).
 """
 from __future__ import annotations
 
@@ -86,8 +94,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import scheduler as sch
+from repro_torch.core.costs import compaction_cost, prefill_cost, window_cost
+from repro_torch.core.apsd import PAR, APSDConfig, APSDStats, RoundRecord
 from repro_torch.core.speculative import (
     LMInterface,
+    SDConfig,
+    SDStats,
     sample_token_host,
     speculative_accept_greedy_host,
     speculative_sample_host,
@@ -107,9 +119,11 @@ from repro_torch.serving.api import (
     RequestOutput,
     SamplingParams,
     default_detokenize,
+    warn_deprecated_once,
 )
-from repro_torch.serving.batcher import ContinuousBatcher
-from repro_torch.serving.observability import MetricsRegistry
+from repro_torch.serving.batcher import BatchConfig, ContinuousBatcher
+from repro_torch.serving.flight_recorder import FlightRecorder
+from repro_torch.serving.observability import LATENCY_BUCKETS, RATIO_BUCKETS, MetricsRegistry
 from repro_torch.serving.paged_cache import (
     PagedKVPool,
     device_pool_store,
@@ -118,6 +132,7 @@ from repro_torch.serving.paged_cache import (
 )
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request, RequestState
+from repro_torch.serving.tracing import NULL_TRACER, Tracer
 
 __all__ = [
     "Engine",
@@ -127,12 +142,27 @@ __all__ = [
     "CompletionOutput",
     "ServingModel",
     "make_interface",
+    "serve_sd",
+    "serve_apsd",
+    "serve_batch",
+    "BatchConfig",
 ]
 
 
 # the forward of each serving mode: the W4A8 target, the BVQ draft, and
 # either side of the dense bf16 pair (launch/serve.build_pair(quantize=False))
 _FORWARDS = {"w4a8": qlm.apply_quantized_lm, "bvq": qlm.apply_bvq_lm, "bf16": lm.apply_lm}
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` with its index made explicit: an index-less "cuda" is the
+    current CUDA device of the calling thread.  The current device is per
+    thread in torch, so a thread that drives the engine (the async front
+    end's worker) makes this index current first."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
 
 
 @dataclasses.dataclass
@@ -146,7 +176,7 @@ class ServingModel:
     def __post_init__(self):
         if self.mode not in _FORWARDS:
             raise ValueError(f"serving mode {self.mode!r} is not one of {sorted(_FORWARDS)}")
-        self.device = torch.device(self.device)
+        self.device = resolve_device(self.device)
 
     def _apply(self, params, tokens, cache):
         return _FORWARDS[self.mode](params, self.cfg, tokens, cache=cache)
@@ -412,7 +442,10 @@ class Engine:
         tokens = eng.output_tokens(rid)
 
     ``detokenize`` renders a token as text for stop-string matching
-    (default: ``api.default_detokenize``).
+    (default: ``api.default_detokenize``).  ``metrics`` shares a registry
+    (the batcher's and the server's families live in the same one);
+    ``trace`` records spans and instants, on whose clock the engine then
+    runs.
     """
 
     def __init__(
@@ -422,12 +455,11 @@ class Engine:
         config: Optional[EngineConfig] = None,
         device="cuda",
         detokenize: Optional[Callable[[int], str]] = None,
+        metrics: Optional[MetricsRegistry] = None,
+        trace: Optional[Tracer] = None,
     ):
         cfg = config if config is not None else EngineConfig()
-        unported = cfg.unported()
-        if unported:
-            raise NotImplementedError(f"EngineConfig settings not ported yet: {unported}")
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         for model in (target, draft):
             if model.device != self.device:
                 raise ValueError(
@@ -465,50 +497,30 @@ class Engine:
             self._prefix = PrefixCache({"target": self._t_pool, "draft": self._d_pool},
                                        cfg.page_size, pin_memory=self.device.type == "cuda")
 
-        self.metrics = m = MetricsRegistry()
-        self._m_table_upload = m.counter(
-            "table_upload_seconds_total", "Host seconds uploading page tables / lengths",
-        )
-        self._m_tree_nodes = m.counter(
-            "tree_nodes_total", "Draft-tree nodes proposed for verification (tree rounds)",
-        )
-        self._m_tree_branches = m.counter(
-            "tree_branches_total",
-            "Extra branches forked beyond a chain: fan-out minus one, summed over nodes",
-        )
-        self._m_tree_depth = m.histogram(
-            "tree_accept_depth",
-            "Depth of the accepted root path per tree round (the bonus token not counted)",
-            buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0),
-        )
-        self._m_tree_compactions = m.counter(
-            "tree_compactions_total",
-            "Compaction calls moving an accepted non-leftmost path's KV into chain order",
-        )
-        self._m_host_copies = m.counter(
-            "host_copies_total",
-            "Device-to-host copies of logits or draft tokens in rounds (each waits for the device)",
-        )
-        # prefix-cache families, registered whether or not the cache is on
-        # (they stay at zero without it)
-        self._m_prefix_hit_rate = m.gauge(
-            "prefix_hit_rate", "Prefix-cache hit fraction over admission lookups",
-        )
-        self._m_shared_pages = m.gauge(
-            "shared_pages",
-            "Prefix-cache page residency: state='shared' counts pool pages mapped by more "
-            "than one holder, state='cached' the pages the radix tree pins",
-            ("pool", "state"),
-        )
-        self._m_tokens_saved = m.counter(
-            "prefill_tokens_saved_total", "Prompt rows whose prefill was skipped via shared pages",
-        )
-        self._m_prefix_cow = m.counter(
-            "prefix_cow_total", "Copy-on-write privatizations of a partially shared prefix page",
-        )
-        for fam in (self._m_tree_nodes, self._m_tree_branches, self._m_tree_compactions,
-                    self._m_host_copies, self._m_tokens_saved, self._m_prefix_cow):
-            fam.inc(0)
+        # observability: one registry for the engine, the batcher and the
+        # server; the tracer's clock, when it is on, is the engine's, so
+        # request times and spans share a timebase
+        self.metrics = metrics if metrics is not None else MetricsRegistry()
+        self.tracer = trace if trace is not None else NULL_TRACER
+        if self.tracer.enabled:
+            self._now = self.tracer.now
+        else:
+            _t0 = time.perf_counter()
+            self._now = lambda: time.perf_counter() - _t0
+        self._init_metrics()
+        # sampled device-time profiling (_profiled): per program name the
+        # one-time cost stamp, the summed wall seconds and the call count
+        self._profile_every = cfg.profile_every_n
+        self._profile_round = False
+        self._round_idx = 0
+        self._prog_flops: Dict[str, float] = {}
+        self._prog_bytes: Dict[str, float] = {}
+        self._prog_wall: Dict[str, float] = {}
+        self._prog_calls: Dict[str, int] = {}
+        # a ring of per-round records fed at every round's end, empty
+        # rounds included (serving/flight_recorder.py)
+        self.flight = FlightRecorder(cfg.flight_ring, metrics=self.metrics, tracer=self.tracer,
+                                     dump_dir=cfg.flight_dump_dir)
 
         self._batcher = ContinuousBatcher(
             cfg, self._t_pool, self._d_pool,
@@ -526,6 +538,147 @@ class Engine:
         self._next_id = 0
         self._detokenize = detokenize if detokenize is not None else default_detokenize
 
+    # -- observability -------------------------------------------------------
+
+    def _init_metrics(self) -> None:
+        """Register the engine's metric families, the reference's (its
+        docs/OBSERVABILITY.md is the catalog) plus ``host_copies_total``.
+        Registration is idempotent, so engines may share a registry."""
+        m = self.metrics
+        self._m_submitted = m.counter("requests_submitted_total", "Requests accepted by add_request")
+        self._m_steps = m.counter("steps_total", "Engine steps executed")
+        self._m_emitted = m.counter("tokens_emitted_total", "Tokens delivered to consumers")
+        self._m_drafted = m.counter("tokens_drafted_total", "Draft tokens proposed")
+        self._m_accepted = m.counter("tokens_accepted_total", "Draft tokens accepted by verification")
+        self._m_table_upload = m.counter(
+            "table_upload_seconds_total", "Host seconds uploading page tables / lengths",
+        )
+        self._m_accept_rate = m.gauge("acceptance_rate", "Cumulative accepted/drafted fraction")
+        self._m_queue_depth = m.gauge("queue_depth", "Requests waiting for admission (QUEUED)")
+        self._m_active = m.gauge("active_requests", "Requests holding a decode slot")
+        self._m_pool_pages = m.gauge("pool_pages", "Paged-KV pool residency", ("pool", "state"))
+        self._m_kv_bytes = m.gauge(
+            "kv_bytes_total",
+            "Bytes resident in allocated paged-KV pages (per storage dtype; int8 includes "
+            "its f32 per-slot scales)", ("pool", "dtype"),
+        )
+        self._m_kv_bytes_per_token = m.gauge(
+            "kv_bytes_per_token", "K+V bytes one cached token occupies (per storage dtype)",
+            ("pool", "dtype"),
+        )
+        self._m_ttft = m.histogram("ttft_seconds", "Submit -> first delivered token",
+                                   buckets=LATENCY_BUCKETS)
+        self._m_itl = m.histogram(
+            "itl_seconds",
+            "Gap between successive token deliveries of one request (one observation per "
+            "non-empty delta)", buckets=LATENCY_BUCKETS,
+        )
+        self._m_round_wall = m.histogram("round_wall_seconds", "Wall time of one engine step",
+                                         buckets=LATENCY_BUCKETS)
+        self._m_admission_wait = m.histogram(
+            "admission_wait_seconds", "Submit -> admission into a decode slot",
+            buckets=LATENCY_BUCKETS,
+        )
+        self._m_round_accept = m.histogram("round_acceptance", "Per-round accepted/drafted fraction",
+                                           buckets=RATIO_BUCKETS)
+        # tree families, registered and materialized at zero on every engine
+        # so the catalog and the scrape are stable
+        self._m_tree_nodes = m.counter(
+            "tree_nodes_total", "Draft-tree nodes proposed for verification (tree rounds)",
+        )
+        self._m_tree_branches = m.counter(
+            "tree_branches_total",
+            "Extra branches forked beyond a chain: fan-out minus one, summed over nodes",
+        )
+        self._m_tree_depth = m.histogram(
+            "tree_accept_depth",
+            "Depth of the accepted root path per tree round (the bonus token not counted)",
+            buckets=(0.0, 1.0, 2.0, 3.0, 4.0, 6.0, 8.0, 12.0),
+        )
+        self._m_tree_compactions = m.counter(
+            "tree_compactions_total",
+            "Compaction calls moving an accepted non-leftmost path's KV into chain order",
+        )
+        for fam in (self._m_tree_nodes, self._m_tree_branches, self._m_tree_compactions):
+            fam.inc(0)
+        # prefix-cache families, registered whether or not the cache is on
+        self._m_prefix_hit_rate = m.gauge(
+            "prefix_hit_rate", "Prefix-cache hit fraction over admission lookups",
+        )
+        self._m_shared_pages = m.gauge(
+            "shared_pages",
+            "Prefix-cache page residency: state='shared' counts pool pages mapped by more "
+            "than one holder, state='cached' the pages the radix tree pins",
+            ("pool", "state"),
+        )
+        self._m_tokens_saved = m.counter(
+            "prefill_tokens_saved_total", "Prompt rows whose prefill was skipped via shared pages",
+        )
+        self._m_prefix_cow = m.counter(
+            "prefix_cow_total", "Copy-on-write privatizations of a partially shared prefix page",
+        )
+        # the port's own: every round's device-to-host copy waits for the device
+        self._m_host_copies = m.counter(
+            "host_copies_total",
+            "Device-to-host copies of logits or draft tokens in rounds (each waits for the device)",
+        )
+        self._m_host_copies.inc(0)
+
+    def _refresh_gauges(self) -> None:
+        """Republish the level-style series (queue depth, active slots, pool
+        residency, cumulative acceptance, the prefix cache's) at step
+        boundaries and before a stats snapshot."""
+        self._m_queue_depth.set(self.queue_depth())
+        self._m_active.set(self.num_active())
+        for name, pool in (("target", self._t_pool), ("draft", self._d_pool)):
+            st = pool.stats()
+            g = self._m_pool_pages
+            g.labels(pool=name, state="used").set(st.used_pages)
+            g.labels(pool=name, state="reserved").set(st.reserved_pages)
+            g.labels(pool=name, state="free").set(st.free_pages)
+            used_tokens = st.used_pages * pool.page_size
+            for dt, bpt in pool.bytes_per_token_by_kind().items():
+                self._m_kv_bytes_per_token.labels(pool=name, dtype=dt).set(bpt)
+                self._m_kv_bytes.labels(pool=name, dtype=dt).set(bpt * used_tokens)
+        drafted = self._m_drafted.value()
+        if drafted:
+            self._m_accept_rate.set(self._m_accepted.value() / drafted)
+        if self._prefix is not None:
+            self._m_prefix_hit_rate.set(self._prefix.hit_rate)
+            for name, pool in (("target", self._t_pool), ("draft", self._d_pool)):
+                self._m_shared_pages.labels(pool=name, state="shared").set(pool.shared_page_count)
+                self._m_shared_pages.labels(pool=name, state="cached").set(self._prefix.node_count)
+
+    def stats_snapshot(self) -> dict:
+        """One JSON-safe stats view, built in one pass on the calling thread
+        (the async front end's worker publishes it after each step): queue
+        and slots, rounds, acceptance, the KV storage mode, each pool's
+        residency, the fused-slot report and, with the prefix cache on, its
+        stats."""
+        self._refresh_gauges()
+        t_stats, d_stats = self.pool_stats()
+        b = self._batcher
+        snap = {
+            "queued": self.queue_depth(),
+            "active": self.num_active(),
+            "max_batch": self.cfg.max_batch,
+            "par_mode": self.cfg.par_mode,
+            "kv_quant": self.cfg.kv_quant,
+            "steps": b.step_count,
+            "rounds": b.rounds,
+            "finished_requests": b.finished_count,
+            "emitted_tokens": b.finished_emitted,
+            "acceptance_rate": b.finished_accepted / max(b.finished_drafted, 1),
+            "target_pool": dataclasses.asdict(t_stats),
+            "draft_pool": dataclasses.asdict(d_stats),
+        }
+        fused = b.fused_summary()
+        if fused is not None:
+            snap["fused"] = fused
+        if self._prefix is not None:
+            snap["prefix_cache"] = self._prefix.stats()
+        return snap
+
     # -- request lifecycle ---------------------------------------------------
 
     def add_request(
@@ -536,7 +689,8 @@ class Engine:
     ) -> int:
         """Submit a prompt; returns its request id.  The batcher prefills it
         on the next ``step()`` once a slot and pages are free.  ``sink``
-        receives each token as it becomes deliverable."""
+        receives each token as it becomes deliverable.  Host work only: the
+        async front end calls it from its event-loop thread."""
         sp = sampling_params if sampling_params is not None else SamplingParams()
         req = Request(
             rid=self._next_id,
@@ -558,6 +712,9 @@ class Engine:
         self._next_id += 1
         self._requests[req.rid] = req
         self._batcher.submit(req)
+        req.submit_ts = self._now()
+        self._m_submitted.inc()
+        self.tracer.instant("engine", "submit", cat="lifecycle", rid=req.rid)
         return req.rid
 
     def abort(self, request_id: int) -> bool:
@@ -572,6 +729,16 @@ class Engine:
         slot = self._batcher.slot_of(request_id)
         assert slot is not None, "active request without a slot"
         self._retire(slot, reason="abort")
+        return True
+
+    def release_request(self, request_id: int) -> bool:
+        """Drop a finished request's bookkeeping (its ``Request`` and output
+        buffer); a long-lived server calls it for every retired request.
+        False if the id is unknown or not finished."""
+        req = self._requests.get(request_id)
+        if req is None or req.state is not RequestState.FINISHED:
+            return False
+        del self._requests[request_id]
         return True
 
     def has_unfinished(self) -> bool:
@@ -594,42 +761,84 @@ class Engine:
         """(target PoolStats, draft PoolStats) — page residency right now."""
         return self._t_pool.stats(), self._d_pool.stats()
 
-    def _refresh_prefix_gauges(self) -> None:
-        """Republish the prefix cache's level-style series (hit rate, shared
-        and cached pages per pool); called at step boundaries and before a
-        stats snapshot."""
-        if self._prefix is None:
-            return
-        self._m_prefix_hit_rate.set(self._prefix.hit_rate)
-        for name, pool in (("target", self._t_pool), ("draft", self._d_pool)):
-            self._m_shared_pages.labels(pool=name, state="shared").set(pool.shared_page_count)
-            self._m_shared_pages.labels(pool=name, state="cached").set(self._prefix.node_count)
+    # -- sampled device-time profiling ---------------------------------------
 
-    def stats_snapshot(self) -> dict:
-        """One JSON-safe stats view: queue and slots, rounds, acceptance,
-        the KV storage mode, each pool's residency (bytes per kind) and,
-        with the prefix cache on, its stats."""
-        self._refresh_prefix_gauges()
-        t_stats, d_stats = self.pool_stats()
-        b = self._batcher
-        snap = {
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _profiled(self, program: str, fn, *args, cost: Callable[[], dict]):
+        """Run one dispatch.  On a profiled round (every
+        ``profile_every_n``-th step) synchronize the device on both sides of
+        it and read the engine's clock: the wall of the program alone, as
+        the reference's ``block_until_ready`` bracket gives it, on the
+        tracer's timebase.  The wall, the call and the call's own count
+        (``cost()``, a ``core/costs`` dict taken before the bracket) add to
+        ``profile_summary()``, and a span carrying that count goes on the
+        tracer's "device" track.  Off-round cost: one bool check, no
+        synchronization."""
+        if not self._profile_round:
+            return fn(*args)
+        stamp = cost()
+        self._sync()
+        t0 = self._now()
+        out = fn(*args)
+        self._sync()
+        t1 = self._now()
+        self._prog_wall[program] = self._prog_wall.get(program, 0.0) + (t1 - t0)
+        self._prog_calls[program] = self._prog_calls.get(program, 0) + 1
+        self._prog_flops[program] = self._prog_flops.get(program, 0.0) + stamp["flops"]
+        self._prog_bytes[program] = self._prog_bytes.get(program, 0.0) + stamp["bytes"]
+        self.tracer.rec("device", program, t0, t1, cat="device", **stamp)
+        return out
+
+    def profile_summary(self) -> Dict[str, dict]:
+        """Measured device-time attribution: per dispatched program the
+        bracketed call count, the summed wall seconds, and the FLOPs and
+        bytes of one call (the mean over the calls timed, each counted on
+        its own inputs: the target's and the draft's prefills share the
+        name ``prefill``), so ``bytes * calls / wall_s`` is the achieved
+        rate.  Empty unless ``profile_every_n > 0`` sampled at least one
+        round."""
+        return {prog: {"calls": calls,
+                       "wall_s": self._prog_wall[prog],
+                       "flops": self._prog_flops[prog] / calls,
+                       "bytes": self._prog_bytes[prog] / calls}
+                for prog, calls in self._prog_calls.items()}
+
+    # -- flight-recorder feed ------------------------------------------------
+
+    def _flight_base(self) -> Tuple[float, float, int]:
+        """Counter values at a round's start, so its record carries the
+        round's deltas."""
+        return self._m_drafted.value(), self._m_accepted.value(), self._batcher.admitted
+
+    def _flight_round(self, base, t_step: float, t_end: float, rows: int, mode: str) -> None:
+        """Append one round record to the flight recorder (empty rounds
+        too: pool exhaustion and admission stalls show as rounds with
+        queued work and no rows)."""
+        if not self.flight.enabled:
+            return
+        d0, a0, adm0 = base
+        self.flight.record({
+            "round": self._batcher.step_count,
+            "mode": mode,
+            "rows": rows,
+            "wall_s": t_end - t_step,
+            "drafted": self._m_drafted.value() - d0,
+            "accepted": self._m_accepted.value() - a0,
+            "admitted": self._batcher.admitted - adm0,
             "queued": self.queue_depth(),
             "active": self.num_active(),
-            "max_batch": self.cfg.max_batch,
-            "par_mode": self.cfg.par_mode,
-            "spec_mode": self.cfg.spec_mode,
-            "kv_quant": self.cfg.kv_quant,
-            "steps": b.step_count,
-            "rounds": b.rounds,
-            "finished_requests": b.finished_count,
-            "emitted_tokens": b.finished_emitted,
-            "acceptance_rate": b.finished_accepted / max(b.finished_drafted, 1),
-            "target_pool": dataclasses.asdict(t_stats),
-            "draft_pool": dataclasses.asdict(d_stats),
-        }
-        if self._prefix is not None:
-            snap["prefix_cache"] = self._prefix.stats()
-        return snap
+            "free_pages": {"target": self._t_pool.free_pages, "draft": self._d_pool.free_pages},
+            "t": t_end,
+        })
+
+    def flight_snapshot(self, dump: bool = False) -> dict:
+        """The flight recorder's JSON-safe view (``GET /debug/flight``);
+        ``dump=True`` also captures the trace tail and writes a postmortem
+        file when a dump directory is configured."""
+        return self.flight.dump() if dump else self.flight.snapshot()
 
     # -- the stepwise round --------------------------------------------------
 
@@ -688,20 +897,33 @@ class Engine:
         the request's kind in each); donate the new full blocks to the
         prefix cache."""
         for slot, req in self._batcher.admit():
+            t_adm = self._now()
+            req.admit_ts = t_adm
+            if req.submit_ts is not None:
+                self._m_admission_wait.observe(t_adm - req.submit_ts)
+            self.tracer.instant(f"row{slot}", "admit", cat="lifecycle", rid=req.rid)
             kind = req.kv_kind
-            t_kv = self._prefill_into(req, self.target, self._t_iface, req.t_seq,
-                                      self._t_stores[kind], self._t_tables, slot, "target")
-            d_kv = self._prefill_into(req, self.draft, self._d_iface, req.d_seq,
-                                      self._d_stores[kind], self._d_tables, slot, "draft")
+            matched = req.prefix_match.tokens_matched if req.prefix_match is not None else 0
+            kv = {}
+            for role, model, iface, seq, stores, tables in (
+                ("target", self.target, self._t_iface, req.t_seq, self._t_stores, self._t_tables),
+                ("draft", self.draft, self._d_iface, req.d_seq, self._d_stores, self._d_tables),
+            ):
+                kv[role] = self._profiled(
+                    "prefill", self._prefill_into, req, model, iface, seq, stores[kind],
+                    tables, slot, role,
+                    cost=lambda model=model, stores=stores: prefill_cost(
+                        model, stores[kind], req.prompt.shape[0], matched))
             if self._prefix is not None:
                 if req.prefix_match is not None:
                     self._m_tokens_saved.inc(req.prefix_match.tokens_matched)
-                if t_kv is not None:
+                if kv["target"] is not None:
                     self._prefix.insert(req.prompt, kind,
                                         {"target": req.t_seq.pages, "draft": req.d_seq.pages},
-                                        {"target": t_kv, "draft": d_kv},
-                                        upto=req.prompt.shape[0] - 1)
+                                        kv, upto=req.prompt.shape[0] - 1)
             req.state = RequestState.DECODE
+            self.tracer.rec(f"row{slot}", "prefill", t_adm, self._now(), cat="prefill",
+                            rid=req.rid)
 
     def _kvq_mask(self, active) -> Optional[torch.Tensor]:
         """(B,) bool device mask, True where the row's KV is int8, or None
@@ -713,16 +935,34 @@ class Engine:
             m[slot] = req.kv_kind == "int8"
         return torch.as_tensor(m, device=self.device)
 
-    def _dispatch(self, run: Callable[[str], Any], kvq):
-        """One logical batched forward over every storage kind: ``run(kind)``
-        calls the step on that kind's store(s) and returns its logits.  A single-kind engine calls it once; a mixed engine
-        once per store, the logits merged row-wise by kind.  A row writes
-        only its own pages of each store and reads only the store of its
-        kind, so the other call leaves unread garbage, never corruption."""
+    def _dispatch(self, program: str, run: Callable[[str], Any], kvq,
+                  cost: Callable[[str], dict]) -> torch.Tensor:
+        """One logical batched dispatch over every storage kind, named
+        ``program`` for the profiler: ``run(kind)`` calls the step on that
+        kind's store and returns its logits, ``cost(kind)`` counts its
+        work.  A single-kind engine calls it once; a mixed engine once per
+        store, each call profiled under the same name, the logits merged
+        row-wise by kind (``_merge``).  A row writes only its own pages of
+        each store and reads only the store of its kind, so the other call
+        leaves unread garbage, never corruption."""
+        return self._merge({k: self._profiled(program, run, k, cost=lambda k=k: cost(k))
+                            for k in self._kinds}, kvq)
+
+    def _merge(self, outs: Dict[str, torch.Tensor], kvq) -> torch.Tensor:
+        """Per-kind logits merged row-wise: each row takes its own kind's."""
         if kvq is None:
-            return run(self._kinds[0])
-        outs = {k: run(k) for k in self._kinds}
+            return outs[self._kinds[0]]
         return torch.where(kvq[:, None, None], outs["int8"], outs["none"])
+
+    def _fused_dispatch(self, program: str, verify: Callable[[str], Any],
+                        draft: Callable[[str], Any], kvq, cost: Callable[[str], dict]):
+        """A fused WDOS slot: per store, the target's verify then the draft
+        step as one profiled ``program`` call (the reference's one fused
+        program per store); (verify logits, draft logits), each merged by
+        kind."""
+        outs = {k: self._profiled(program, lambda k: (verify(k), draft(k)), k,
+                                  cost=lambda k=k: cost(k)) for k in self._kinds}
+        return tuple(self._merge({k: o[i] for k, o in outs.items()}, kvq) for i in (0, 1))
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -733,23 +973,31 @@ class Engine:
         return t.cpu().numpy()
 
     def _load_tables(self, active):
-        t0 = time.perf_counter()
+        t0 = self._now()
         d_table, d_len0 = self._d_tables.load((s, r.d_seq) for s, r in active)
         t_table, t_len0 = self._t_tables.load((s, r.t_seq) for s, r in active)
-        self._m_table_upload.inc(time.perf_counter() - t0)
+        self._m_table_upload.inc(self._now() - t0)
         return d_table, d_len0, t_table, t_len0
 
     def _table_devs(self):
         """(target, draft) page tables on the device for a WDOS step: one
         upload serves every slot (the rows retired mid-step are masked)."""
-        t0 = time.perf_counter()
+        t0 = self._now()
         tables = self._t_tables.table_dev(), self._d_tables.table_dev()
-        self._m_table_upload.inc(time.perf_counter() - t0)
+        self._m_table_upload.inc(self._now() - t0)
         return tables
 
-    def _retire(self, slot: int, reason: str = "length") -> None:
+    def _retire(self, slot: int, reason: Optional[str] = None) -> None:
+        """Free a slot: ``reason=None`` retires a finished request (a
+        ``finish`` instant on its row's track), ``"abort"`` cancels one."""
         self._t_tables.clear_row(slot)
         self._d_tables.clear_row(slot)
+        if reason is None:
+            req = self._batcher.slots[slot]
+            if self.tracer.enabled:
+                self.tracer.instant(f"row{slot}", "finish", cat="lifecycle", rid=req.rid,
+                                    reason=req.finish_reason or "length")
+            reason = "length"
         self._batcher.retire(slot, reason=reason)
 
     def step(self) -> List[RequestOutput]:
@@ -757,33 +1005,59 @@ class Engine:
         two-phase chain or tree round, or under ``par_mode="wdos"`` a horizon
         of fused slots (which may commit several windows per request).
         Returns a ``RequestOutput`` per request active at the round's
-        start."""
+        start.  Every round, empty ones included, feeds the step counter,
+        the gauges and the flight recorder; a round that ran also feeds the
+        round-wall histogram and the tracer's ``step#k`` span."""
+        cfg = self.cfg
+        self._round_idx += 1
+        self._profile_round = self._profile_every > 0 and self._round_idx % self._profile_every == 0
+        tree = cfg.spec_mode == "tree"
+        mode = ("fused" if cfg.par_mode == "wdos" else "two_phase") + ("_tree" if tree else "")
+        t_step = self._now()
+        fb = self._flight_base()
         self._admit()
         active = self._batcher.active()
-        if active:
-            tree = self.cfg.spec_mode == "tree"
-            if self.cfg.par_mode == "wdos":
-                (self._fused_tree_round if tree else self._fused_round)(active)
-            else:
-                (self._tree_round if tree else self._chain_round)(active)
-                for slot, req in active:
-                    if req.done:
-                        self._retire(slot)
+        if not active:
+            self._batcher.step_count += 1
+            self._m_steps.inc()
+            self._refresh_gauges()
+            self._flight_round(fb, t_step, self._now(), 0, mode)
+            return []
+        if cfg.par_mode == "wdos":
+            (self._fused_tree_round if tree else self._fused_round)(active)
+        else:
+            (self._tree_round if tree else self._chain_round)(active)
+            for slot, req in active:
+                if req.done:
+                    self._retire(slot)
         self._batcher.step_count += 1
-        self._refresh_prefix_gauges()
-        return [self._output_for(req) for _, req in active]
+        self._m_steps.inc()
+        t_end = self._now()
+        self._m_round_wall.observe(t_end - t_step)
+        self.tracer.rec("engine", f"step#{self._batcher.step_count}", t_step, t_end, cat="step",
+                        par_mode=cfg.par_mode, rows=len(active))
+        self._refresh_gauges()
+        self._flight_round(fb, t_step, t_end, len(active), mode)
+        return [self._output_for(req, t_end) for _, req in active]
 
-    def _commit(self, req: Request, new: List[int], n_acc: int, dl: int, drafted: int,
-                work: List[Tuple[Request, int]]) -> None:
+    def _commit(self, slot: int, req: Request, new: List[int], n_acc: int, dl: int,
+                drafted: int, work: List[Tuple[Request, int]]) -> None:
         """Commit one verified window of ``dl`` (``drafted`` proposals; a
-        tree's node count), record the round and step the request's APSD
-        controller."""
+        tree's node count), record the round, step the request's APSD
+        controller and count it (drafted / accepted, round acceptance, a
+        ``commit`` instant on the row's track)."""
         req.commit(new)
         req.record_round(req.controller.mode, dl, n_acc, len(new))
         req.rounds += 1
         req.drafted += drafted
         req.accepted += n_acc
         req.controller.observe(n_acc, dl)
+        self._m_drafted.inc(drafted)
+        self._m_accepted.inc(n_acc)
+        self._m_round_accept.observe(n_acc / dl if dl else 0.0)
+        if self.tracer.enabled:
+            self.tracer.instant(f"row{slot}", "commit", cat="commit", rid=req.rid,
+                                drafted=drafted, accepted=n_acc)
         work.append((req, dl))
 
     def _chain_round(self, active) -> None:
@@ -793,6 +1067,7 @@ class Engine:
         any_sampled = any(not req.sampling.greedy for _, req in active)
         kvq = self._kvq_mask(active)
         d_table, d_len0, t_table, t_len0 = self._load_tables(active)
+        t_draft0 = self._now()
 
         # ---- draft phase: round_dl proposal steps + 1 straggler step, all
         # batched.  An all-greedy batch keeps the next-token argmax on the
@@ -806,8 +1081,10 @@ class Engine:
         draft_cols: List[Any] = []
         q_cols: List[np.ndarray] = []  # per-position draft logits (sampled rounds)
         for j in range(round_dl + 1):
-            logits = self._dispatch(lambda k: self._d_step(
-                self.draft.params, cur_dev[:, None], self._d_stores[k], d_table, d_len0 + j), kvq)
+            logits = self._dispatch("draft", lambda k: self._d_step(
+                self.draft.params, cur_dev[:, None], self._d_stores[k], d_table, d_len0 + j), kvq,
+                cost=lambda k: window_cost(self.draft, self._d_stores[k],
+                                           self._d_tables.lengths + j, 1))
             if j < round_dl:
                 if any_sampled:
                     last = self._to_host(logits[:, -1, :].float())
@@ -829,15 +1106,22 @@ class Engine:
             drafts = np.stack(draft_cols, axis=1)
         else:
             drafts = self._to_host(torch.stack(draft_cols, dim=1))
+        t_verify0 = self._now()
+        self.tracer.rec("engine", "draft_phase", t_draft0, t_verify0, cat="phase",
+                        rows=len(active), dl=round_dl)
 
         # ---- verify phase: one batched pass scoring [last_tok, drafts...]
         window = np.zeros((cfg.max_batch, round_dl + 1), np.int32)
         window[:, 0] = cur
         window[:, 1:] = drafts
         window_dev = self._dev(window)
-        v_logits = self._dispatch(lambda k: self._t_step(
-            self.target.params, window_dev, self._t_stores[k], t_table, t_len0), kvq)
+        v_logits = self._dispatch("verify", lambda k: self._t_step(
+            self.target.params, window_dev, self._t_stores[k], t_table, t_len0), kvq,
+            cost=lambda k: window_cost(self.target, self._t_stores[k], self._t_tables.lengths,
+                                       round_dl + 1))
         p_logits = self._to_host(v_logits.float())  # (B, round_dl+1, V)
+        self.tracer.rec("engine", "verify_phase", t_verify0, self._now(), cat="phase",
+                        rows=len(active))
 
         # ---- per-request accept / commit: a pure length update per row
         work: List[Tuple[Request, int]] = []
@@ -852,7 +1136,7 @@ class Engine:
                     req.accept_key(), drafts[slot], p_logits[slot], q_logits, dl,
                     sp.temperature, sp.top_k, sp.top_p,
                 )
-            self._commit(req, new, n_acc, dl, dl, work)
+            self._commit(slot, req, new, n_acc, dl, dl, work)
             # both models wrote round_dl+1 positions; keep n_acc + 1
             # (draft invariant: cache == committed[:-1], incl. straggler)
             for seq in (req.t_seq, req.d_seq):
@@ -862,14 +1146,35 @@ class Engine:
 
     # -- fused WDOS rounds (par_mode="wdos") ---------------------------------
 
+    def _trace_slot(self, plan, by_slot, t0: float, t1: float, tree: bool) -> None:
+        """One ``fused_slot`` span on the engine track plus a span on every
+        participating row's track: the WDOS schedule made visible."""
+        kind = "fused" if plan.fused else "verify_only" if plan.verify_rows else "draft_only"
+        extra = {"spec": "tree"} if tree else {}
+        self.tracer.rec("engine", "fused_slot", t0, t1, cat="fused", kind=kind,
+                        draft_rows=len(plan.draft_rows), verify_rows=len(plan.verify_rows),
+                        **extra)
+        for slot in plan.draft_rows:
+            req = by_slot[slot]
+            if tree:
+                self.tracer.rec(f"row{slot}", "tree_draft", t0, t1, cat="draft", rid=req.rid,
+                                depth=req.tree_depth)
+            else:
+                self.tracer.rec(f"row{slot}", "draft", t0, t1, cat="draft", rid=req.rid)
+        for slot in plan.verify_rows:
+            self.tracer.rec(f"row{slot}", "tree_verify" if tree else "verify", t0, t1,
+                            cat="verify", rid=by_slot[slot].rid)
+
     def _fused_round(self, active) -> None:
         """One chain round as a horizon of ``max_dl + 2`` fused slots (the
         dispatch budget of a two-phase round of the longest window).  Each
         slot the planner sends window-full rows to VERIFY (a target window
         of the fixed width ``max_dl + 1``, causally padded, while the draft
         side feeds the window's straggler) and every other row to DRAFT one
-        proposal.  A row's open window carries across steps; a row that
-        finishes retires in the slot that finished it."""
+        proposal.  A slot with verifying rows is one ``fused_wdos`` program
+        (the target's verify, then the draft step), a slot without one
+        ``draft_slot``.  A row's open window carries across steps; a row
+        that finishes retires in the slot that finished it."""
         cfg = self.cfg
         b, wv = cfg.max_batch, cfg.max_dl + 1
         # the kinds of the step's first actives cover every later slot (the
@@ -890,39 +1195,53 @@ class Engine:
             # every active row runs the draft step: a drafting row its next
             # proposal, a verifying row its window's straggler
             d_tok = np.zeros((b, 1), np.int32)
-            d_len = np.zeros((b,), np.int32)
+            d_len_np = np.zeros((b,), np.int32)
             d_mask = np.zeros((b,), bool)
             for slot, req in active:
                 d_tok[slot, 0] = req.draft_tip
-                d_len[slot] = req.d_seq.length + len(req.pending)
+                d_len_np[slot] = req.d_seq.length + len(req.pending)
                 d_mask[slot] = True
-            d_tok, d_len, d_mask = self._dev(d_tok), self._dev(d_len), self._dev(d_mask)
+            d_tok, d_len, d_mask = self._dev(d_tok), self._dev(d_len_np), self._dev(d_mask)
+
+            def draft_step(k):
+                return self._d_step(self.draft.params, d_tok, self._d_stores[k], d_table, d_len,
+                                    role_mask=d_mask)
+
+            def draft_cost(k):
+                return window_cost(self.draft, self._d_stores[k], d_len_np, 1)
 
             # a fused slot: the target's verify window over the verifying
             # rows, then the draft step over every active row, one after the
             # other on the current stream; each side's masked rows write only
             # its pool's scratch page
-            t0 = time.perf_counter()
-            v_logits = v_np = None
+            slot_t0 = self._now()
+            v_np = None
             if plan.verify_rows:
                 v_tok = np.zeros((b, wv), np.int32)
-                t_len = np.zeros((b,), np.int32)
+                t_len_np = np.zeros((b,), np.int32)
                 v_mask = np.zeros((b,), bool)
                 for slot in plan.verify_rows:
                     req = by_slot[slot]
                     v_tok[slot, 0] = req.last_tok
                     v_tok[slot, 1: 1 + req.pending_dl] = req.pending
-                    t_len[slot] = req.t_seq.length
+                    t_len_np[slot] = req.t_seq.length
                     v_mask[slot] = True
-                v_tok, t_len, v_mask = self._dev(v_tok), self._dev(t_len), self._dev(v_mask)
-                v_logits = self._dispatch(lambda k: self._t_step(
-                    self.target.params, v_tok, self._t_stores[k], t_table, t_len,
-                    role_mask=v_mask), kvq)
-            d_logits = self._dispatch(lambda k: self._d_step(
-                self.draft.params, d_tok, self._d_stores[k], d_table, d_len,
-                role_mask=d_mask), kvq)
-            if v_logits is not None:
+                v_tok, t_len, v_mask = self._dev(v_tok), self._dev(t_len_np), self._dev(v_mask)
+
+                def verify(k):
+                    return self._t_step(self.target.params, v_tok, self._t_stores[k], t_table,
+                                        t_len, role_mask=v_mask)
+
+                def fused_cost(k):
+                    t = window_cost(self.target, self._t_stores[k], t_len_np, wv)
+                    d = draft_cost(k)
+                    return {key: t[key] + d[key] for key in t}
+
+                v_logits, d_logits = self._fused_dispatch("fused_wdos", verify, draft_step, kvq,
+                                                          cost=fused_cost)
                 v_np = self._to_host(v_logits.float())  # (B, max_dl + 1, V)
+            else:
+                d_logits = self._dispatch("draft_slot", draft_step, kvq, cost=draft_cost)
             # only drafting rows read the draft logits: the argmax on the
             # device when none of them samples, else the f32 rows
             if plan.draft_rows:
@@ -932,7 +1251,10 @@ class Engine:
                 else:
                     q_np = self._to_host(last.float())
                     nxt = np.argmax(q_np, axis=-1)
-            self._batcher.record_fused_slot(plan, time.perf_counter() - t0, wv)
+            slot_t1 = self._now()
+            self._batcher.record_fused_slot(plan, slot_t1 - slot_t0, wv)
+            if self.tracer.enabled:
+                self._trace_slot(plan, by_slot, slot_t0, slot_t1, tree=False)
 
             # drafting rows: append the next proposal (the two-phase rule and
             # the same (round, position) keys, so tokens match across modes)
@@ -959,7 +1281,7 @@ class Engine:
                         req.accept_key(), drafts, v_np[slot], np.stack(req.pending_q), dl,
                         sp.temperature, sp.top_k, sp.top_p,
                     )
-                self._commit(req, new, n_acc, dl, dl, work)
+                self._commit(slot, req, new, n_acc, dl, dl, work)
                 # the target wrote wv positions, the draft dl + 1 (with the
                 # straggler); both keep n_acc + 1
                 req.t_seq.advance(wv)
@@ -976,9 +1298,10 @@ class Engine:
         fused slots: tree-full rows VERIFY (the ancestor-masked target
         window) while every active row re-feeds its tree on the draft side
         (for a verifying row the straggler that lands the leaf KV; for the
-        others one more level).  Accepted non-leftmost paths are compacted
-        before the next slot, since a committed row's next window overlaps
-        its old slots."""
+        others one more level): one ``fused_tree`` program, or
+        ``tree_draft_slot`` when no row verifies.  Accepted non-leftmost
+        paths are compacted before the next slot, since a committed row's
+        next window overlaps its old slots."""
         cfg = self.cfg
         b, w = cfg.max_batch, self._tree_width
         kvq = self._kvq_mask(active)
@@ -994,35 +1317,52 @@ class Engine:
                     req.begin_tree(min(req.controller.draft_len(), cfg.tree_budget))
             plan = sch.plan_mixed_slot([sch.RowPhase(slot=s, window=r.tree_dl,
                                                      drafted=r.tree_depth) for s, r in active])
-            d_len = np.zeros((b,), np.int32)
+            d_len_np = np.zeros((b,), np.int32)
             d_mask = np.zeros((b,), bool)
             for slot, req in active:
-                d_len[slot] = req.d_seq.length
+                d_len_np[slot] = req.d_seq.length
                 d_mask[slot] = True
-            d_win, d_len, d_mask = self._tree_inputs(active), self._dev(d_len), self._dev(d_mask)
+            d_win, d_len, d_mask = self._tree_inputs(active), self._dev(d_len_np), self._dev(d_mask)
+
+            def draft_step(k):
+                return self._d_step(self.draft.params, d_win[0], self._d_stores[k], d_table,
+                                    d_len, *d_win[1:], role_mask=d_mask)
+
+            def draft_cost(k):
+                return window_cost(self.draft, self._d_stores[k], d_len_np, w)
 
             # a fused slot as in the chain round, over tree windows
-            t0 = time.perf_counter()
-            v_logits = v_np = d_np = None
+            slot_t0 = self._now()
+            v_np = d_np = None
             if plan.verify_rows:
-                t_len = np.zeros((b,), np.int32)
+                t_len_np = np.zeros((b,), np.int32)
                 v_mask = np.zeros((b,), bool)
                 for slot in plan.verify_rows:
-                    t_len[slot] = by_slot[slot].t_seq.length
+                    t_len_np[slot] = by_slot[slot].t_seq.length
                     v_mask[slot] = True
                 v_win = self._tree_inputs([(s, by_slot[s]) for s in plan.verify_rows])
-                t_len, v_mask = self._dev(t_len), self._dev(v_mask)
-                v_logits = self._dispatch(lambda k: self._t_step(
-                    self.target.params, v_win[0], self._t_stores[k], t_table, t_len, *v_win[1:],
-                    role_mask=v_mask), kvq)
-            d_logits = self._dispatch(lambda k: self._d_step(
-                self.draft.params, d_win[0], self._d_stores[k], d_table, d_len, *d_win[1:],
-                role_mask=d_mask), kvq)
-            if v_logits is not None:
+                t_len, v_mask = self._dev(t_len_np), self._dev(v_mask)
+
+                def verify(k):
+                    return self._t_step(self.target.params, v_win[0], self._t_stores[k], t_table,
+                                        t_len, *v_win[1:], role_mask=v_mask)
+
+                def fused_cost(k):
+                    t = window_cost(self.target, self._t_stores[k], t_len_np, w)
+                    d = draft_cost(k)
+                    return {key: t[key] + d[key] for key in t}
+
+                v_logits, d_logits = self._fused_dispatch("fused_tree", verify, draft_step, kvq,
+                                                          cost=fused_cost)
                 v_np = self._to_host(v_logits.float())  # (B, W, V)
+            else:
+                d_logits = self._dispatch("tree_draft_slot", draft_step, kvq, cost=draft_cost)
             if plan.draft_rows:  # tree growth reads every frontier row
                 d_np = self._to_host(d_logits.float())
-            self._batcher.record_fused_slot(plan, time.perf_counter() - t0, w, draft_width=w)
+            slot_t1 = self._now()
+            self._batcher.record_fused_slot(plan, slot_t1 - slot_t0, w, draft_width=w)
+            if self.tracer.enabled:
+                self._trace_slot(plan, by_slot, slot_t0, slot_t1, tree=True)
 
             for slot in plan.draft_rows:
                 _sample_tree_level(by_slot[slot], cfg, d_np[slot])
@@ -1030,7 +1370,7 @@ class Engine:
             moves_d = {k: ([], []) for k in self._kinds}
             for slot in plan.verify_rows:
                 req = by_slot[slot]
-                self._tree_verify_commit(req, v_np[slot], req.tree_dl, moves_t, moves_d, work)
+                self._tree_verify_commit(slot, req, v_np[slot], req.tree_dl, moves_t, moves_d, work)
                 if req.done:
                     self._retire(slot)
             self._compact_pools(moves_t, moves_d)
@@ -1060,36 +1400,47 @@ class Engine:
         multi-branch accept rule per row, and compact accepted non-leftmost
         paths into chain order."""
         cfg = self.cfg
+        w = self._tree_width
         dls = {slot: min(req.controller.draft_len(), cfg.tree_budget) for slot, req in active}
         round_depth = max(dls.values())
         kvq = self._kvq_mask(active)
         d_table, d_len0, t_table, t_len0 = self._load_tables(active)
+        t_draft0 = self._now()
         for slot, req in active:
             req.begin_tree(dls[slot])
 
         for j in range(round_depth + 1):
             win = self._tree_inputs(active)
-            logits = self._dispatch(lambda k: self._d_step(
-                self.draft.params, win[0], self._d_stores[k], d_table, d_len0, *win[1:]), kvq)
+            logits = self._dispatch("tree_draft", lambda k: self._d_step(
+                self.draft.params, win[0], self._d_stores[k], d_table, d_len0, *win[1:]), kvq,
+                cost=lambda k: window_cost(self.draft, self._d_stores[k], self._d_tables.lengths,
+                                           w))
             if j < round_depth:
                 l_np = self._to_host(logits.float())
                 for slot, req in active:
                     if not req.tree_full:
                         _sample_tree_level(req, cfg, l_np[slot])
+        t_verify0 = self._now()
+        self.tracer.rec("engine", "tree_draft", t_draft0, t_verify0, cat="phase",
+                        rows=len(active), depth=round_depth, spec="tree")
         win = self._tree_inputs(active)
-        v_logits = self._dispatch(lambda k: self._t_step(
-            self.target.params, win[0], self._t_stores[k], t_table, t_len0, *win[1:]), kvq)
+        v_logits = self._dispatch("tree_verify", lambda k: self._t_step(
+            self.target.params, win[0], self._t_stores[k], t_table, t_len0, *win[1:]), kvq,
+            cost=lambda k: window_cost(self.target, self._t_stores[k], self._t_tables.lengths,
+                                       w))
         p_logits = self._to_host(v_logits.float())  # (B, W, V)
+        self.tracer.rec("engine", "tree_verify", t_verify0, self._now(), cat="phase",
+                        rows=len(active), spec="tree")
 
         work: List[Tuple[Request, int]] = []
         moves_t = {k: ([], []) for k in self._kinds}
         moves_d = {k: ([], []) for k in self._kinds}
         for slot, req in active:
-            self._tree_verify_commit(req, p_logits[slot], dls[slot], moves_t, moves_d, work)
+            self._tree_verify_commit(slot, req, p_logits[slot], dls[slot], moves_t, moves_d, work)
         self._compact_pools(moves_t, moves_d)
         self._batcher.model_round(work)
 
-    def _tree_verify_commit(self, req: Request, p_win: np.ndarray, dl: int,
+    def _tree_verify_commit(self, slot: int, req: Request, p_win: np.ndarray, dl: int,
                             moves_t, moves_d, work) -> None:
         """Accept / commit one verified tree row: the multi-branch accept
         rule over the window logits (W, V), greedy or lossless sampling (the
@@ -1111,7 +1462,7 @@ class Engine:
                 req.accept_key(), nodes, parents, p_win, q_win,
                 sp.temperature, sp.top_k, sp.top_p,
             )
-        self._commit(req, new, n_acc, dl, len(nodes), work)
+        self._commit(slot, req, new, n_acc, dl, len(nodes), work)
         self._m_tree_nodes.inc(len(nodes))
         # a chain of n nodes has n distinct parents; each repeat is a fork
         self._m_tree_branches.inc(len(nodes) - len(set(parents)))
@@ -1133,22 +1484,50 @@ class Engine:
 
     def _compact_pools(self, moves_t, moves_d) -> None:
         """Run the queued compaction moves: one ``_compact_slots`` call per
-        (pool, kind) that has any, each counted in
-        ``tree_compactions_total``."""
-        for moves, stores in ((moves_t, self._t_stores), (moves_d, self._d_stores)):
+        (pool, kind) that has any (the ``compaction`` program), each counted
+        in ``tree_compactions_total``; the flush spans the engine track."""
+        if not any(src for mv in (moves_t, moves_d) for (src, _) in mv.values()):
+            return
+        t0 = self._now()
+        n_dispatched = 0
+        for moves, stores, model in ((moves_t, self._t_stores, self.target),
+                                     (moves_d, self._d_stores, self.draft)):
             for kind, (src, dst) in moves.items():
                 if src:
-                    _compact_slots(stores[kind], torch.as_tensor(src, device=self.device),
-                                   torch.as_tensor(dst, device=self.device))
+                    store = stores[kind]
+                    self._profiled(
+                        "compaction", _compact_slots, store,
+                        torch.as_tensor(src, device=self.device),
+                        torch.as_tensor(dst, device=self.device),
+                        cost=lambda store=store, n=len(src), model=model: compaction_cost(
+                            model, store, n))
                     self._m_tree_compactions.inc()
+                    n_dispatched += 1
+        if self.tracer.enabled:
+            self.tracer.rec("engine", "compaction", t0, self._now(), cat="phase",
+                            dispatches=n_dispatched)
 
-    def _output_for(self, req: Request) -> RequestOutput:
+    def _output_for(self, req: Request, now: Optional[float] = None) -> RequestOutput:
         """One streaming RequestOutput: the tokens delivered this step plus
-        the cumulative completion."""
+        the cumulative completion.  This is the delivery point, so TTFT and
+        ITL are counted here: a non-empty delta is one delivery, the first
+        observes TTFT (submit to first token), each later one the gap since
+        the previous delivery."""
+        delta = req.take_delta()
+        if delta:
+            t = self._now() if now is None else now
+            self._m_emitted.inc(len(delta))
+            if req.first_emit_ts is None:
+                req.first_emit_ts = t
+                if req.submit_ts is not None:
+                    self._m_ttft.observe(t - req.submit_ts)
+            elif req.last_emit_ts is not None:
+                self._m_itl.observe(t - req.last_emit_ts)
+            req.last_emit_ts = t
         return RequestOutput(
             request_id=req.rid,
             prompt_token_ids=[int(t) for t in req.prompt],
-            new_token_ids=req.take_delta(),
+            new_token_ids=delta,
             finished=req.state is RequestState.FINISHED,
             outputs=[CompletionOutput(
                 index=0,
@@ -1161,11 +1540,13 @@ class Engine:
         self,
         prompts: Optional[Sequence[Any]] = None,
         sampling_params=None,
+        sinks: Optional[Sequence[Optional[Callable[[int], None]]]] = None,
     ) -> Tuple[List[torch.Tensor], dict]:
         """Drain loop: optionally add `prompts` (one shared or per-prompt
-        ``SamplingParams``), then ``step()`` until nothing is queued or
-        active.  Returns (outputs for the added prompts — or every request
-        this engine has seen — in submission order, summary)."""
+        ``SamplingParams``, and per-prompt ``sinks``), then ``step()`` until
+        nothing is queued or active.  Returns (outputs for the added prompts
+        — or every request this engine has seen — in submission order,
+        summary)."""
         rids = None
         if prompts is not None:
             n = len(prompts)
@@ -1175,7 +1556,8 @@ class Engine:
                 sps = list(sampling_params)
                 if len(sps) != n:
                     raise ValueError(f"{len(sps)} sampling_params for {n} prompts")
-            rids = [self.add_request(p, sps[i]) for i, p in enumerate(prompts)]
+            rids = [self.add_request(p, sps[i], sink=sinks[i] if sinks else None)
+                    for i, p in enumerate(prompts)]
         while self.has_unfinished():
             self.step()
         ids = rids if rids is not None else sorted(self._requests)
@@ -1201,3 +1583,142 @@ class Engine:
         if self._prefix is not None:
             s["prefix_cache"] = self._prefix.stats()
         return s
+
+
+# ---------------------------------------------------------------------------
+# Deprecated run-to-drain wrappers (greedy outputs equal to Engine.run's)
+# ---------------------------------------------------------------------------
+
+
+def _seed_from_key(key) -> int:
+    """Fold a PRNG key (``core/prng.PRNGKey``: its key data is
+    ``jax.random``'s bit for bit) into a per-request integer seed, the
+    reference's bridge from key threading to per-request key streams."""
+    return int(np.asarray(key).ravel()[-1])
+
+
+def _empty_summary(cfg) -> dict:
+    return {
+        "requests": 0, "rounds": 0, "steps": 0, "emitted": 0,
+        "acceptance_rate": 0.0, "target_pool": None, "draft_pool": None,
+        "wdos_modeled_speedup": 1.0,
+        "wdos_utilization": {},
+        "par_mode": getattr(cfg, "par_mode", "off"),
+        "kv_path": getattr(cfg, "kv_path", "paged"),
+        "table_upload_s": 0.0,
+    }
+
+
+def serve_sd(key, target: ServingModel, draft: ServingModel, prompt, cfg: SDConfig):
+    """DEPRECATED: single-request speculative decoding through the Engine.
+    Greedy outputs equal ``sd_generate``'s; a sampled request draws from
+    the engine's key stream seeded from ``key``."""
+    warn_deprecated_once("serve_sd", "Engine.add_request(...) + Engine.step()")
+    prompt_np = np.asarray(prompt).reshape(-1)
+    ecfg = EngineConfig(
+        max_batch=1,
+        draft_len=cfg.draft_len,
+        model_wdos=False,
+        max_model_len=prompt_np.shape[0] + cfg.max_tokens + cfg.draft_len,
+    )
+    eng = Engine(target, draft, ecfg, device=target.device)
+    sp = SamplingParams(temperature=max(cfg.temperature, 0.0), max_tokens=cfg.max_tokens,
+                        seed=_seed_from_key(key))
+    outs, _ = eng.run([prompt_np], sp)
+    req = eng.request(0)
+    stats = SDStats(emitted=req.emitted_total, rounds=req.rounds, drafted=req.drafted,
+                    accepted=req.accepted)
+    return outs[0], stats
+
+
+def serve_apsd(key, target: ServingModel, draft: ServingModel, prompt, cfg: APSDConfig):
+    """DEPRECATED: single-request APSD through the Engine's adaptive mode
+    (each request's controller drives the APSD mode machine, so greedy
+    outputs stay lossless); the round stats are rebuilt from the request's
+    round log."""
+    warn_deprecated_once("serve_apsd", "Engine with EngineConfig(adaptive=True)")
+    prompt_np = np.asarray(prompt).reshape(-1)
+    ecfg = EngineConfig(
+        max_batch=1,
+        adaptive=True,
+        short_dl=cfg.short_dl,
+        long_dl=cfg.long_dl,
+        model_wdos=False,
+        max_model_len=prompt_np.shape[0] + cfg.max_tokens + cfg.long_dl,
+    )
+    eng = Engine(target, draft, ecfg, device=target.device)
+    sp = SamplingParams(temperature=max(cfg.temperature, 0.0), max_tokens=cfg.max_tokens,
+                        seed=_seed_from_key(key))
+    outs, _ = eng.run([prompt_np], sp)
+    req = eng.request(0)
+    records = tuple(
+        RoundRecord(mode=m, drafted=d, accepted=a, emitted=e, discarded=0)
+        for m, d, a, e in req.history
+    )
+    stats = APSDStats(
+        emitted=sum(r.emitted for r in records),
+        rounds=len(records),
+        drafted=sum(r.drafted for r in records),
+        accepted=sum(r.accepted for r in records),
+        discarded=0,
+        par_rounds=sum(1 for r in records if r.mode == PAR),
+        records=records,
+    )
+    return outs[0], stats
+
+
+def serve_batch(
+    key,
+    target: ServingModel,
+    draft: ServingModel,
+    prompts: Sequence[Any],  # each (S,) or (1, S) int32, S >= 2
+    cfg: BatchConfig,
+    sinks: Optional[Sequence[Optional[Callable[[int], None]]]] = None,
+) -> Tuple[List[torch.Tensor], dict]:
+    """DEPRECATED: run-to-drain greedy batch decoding; use ``Engine``.
+    Builds an Engine sized like the reference's closed-batch runtime (the
+    pool fits the ``max_batch`` largest requests, the table width the
+    batch's worst-case peak), adds every prompt and drains.
+    ``kv_path="host"`` (the reference's legacy host-gather loop) is not
+    ported."""
+    warn_deprecated_once("serve_batch", "Engine.run(...)")
+    if cfg.kv_path == "host":
+        raise NotImplementedError(
+            "kv_path='host' runs the reference's legacy loop (serving/host_gather.py, "
+            "serve_batch_host), which is not ported; use kv_path='paged'"
+        )
+    if cfg.kv_path != "paged":
+        raise ValueError(f"kv_path must be 'paged' or 'host', got {cfg.kv_path!r}")
+    if cfg.temperature != 0.0:
+        raise NotImplementedError(
+            "the deprecated serve_batch wrapper serves greedy decoding only; pass "
+            "SamplingParams(temperature=...) to Engine.add_request for sampled decoding"
+        )
+    del key  # greedy decoding is deterministic; kept for the signature
+    if not len(prompts):
+        return [], _empty_summary(cfg)
+    prompts_np = [np.asarray(p).reshape(-1) for p in prompts]
+    peaks = [p.shape[0] + cfg.max_tokens + cfg.max_dl for p in prompts_np]
+    for model in (target, draft):
+        if max(peaks) > model.s_max:
+            raise ValueError(
+                f"peak cache length {max(peaks)} exceeds s_max={model.s_max} of {model.cfg.name}"
+            )
+    if cfg.num_pages is not None:
+        num_pages = cfg.num_pages
+    else:
+        worst = sorted((pages_for(p, cfg.page_size) for p in peaks), reverse=True)
+        num_pages = sum(worst[: cfg.max_batch])
+    ecfg = EngineConfig(
+        max_batch=cfg.max_batch,
+        page_size=cfg.page_size,
+        draft_len=cfg.draft_len,
+        adaptive=cfg.adaptive,
+        short_dl=cfg.short_dl,
+        long_dl=cfg.long_dl,
+        num_pages=num_pages,
+        max_model_len=max(peaks),
+        model_wdos=cfg.model_wdos,
+    )
+    eng = Engine(target, draft, ecfg, device=target.device)
+    return eng.run(prompts_np, SamplingParams(max_tokens=cfg.max_tokens), sinks=sinks)

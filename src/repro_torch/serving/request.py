@@ -25,8 +25,8 @@ request retires and frees its pages as a length-finished one does.  A
 token whose text could still begin a match is held back from delivery
 until later text proves it safe, so a delivered token is never retracted.
 
-The reference's latency timestamps are not ported yet (nothing in the port
-reads them).
+The engine stamps the request's lifecycle times (submit, admit, first and
+last delivery) on its own clock; the request itself never reads a clock.
 """
 from __future__ import annotations
 
@@ -102,8 +102,16 @@ class Request:
     rounds: int = 0  # committed rounds: the key streams' round index
     drafted: int = 0
     accepted: int = 0
+    emitted_total: int = 0  # committed tokens, the last round's overshoot included
     # (controller mode, drafted, accepted, emitted) per committed round
     history: List[Tuple[int, int, int, int]] = dataclasses.field(default_factory=list)
+    # lifecycle times on the engine's clock (seconds): submit and admit
+    # feed the admission-wait histogram, the first and last delivery TTFT
+    # and the inter-token latency
+    submit_ts: Optional[float] = None
+    admit_ts: Optional[float] = None
+    first_emit_ts: Optional[float] = None
+    last_emit_ts: Optional[float] = None
 
     # -- fused window state (par_mode="wdos"): pending_dl is the open
     # window's length (None between windows); pending holds the proposals so
@@ -230,12 +238,14 @@ class Request:
             for t in tokens[:keep]:
                 self.sink(int(t))
         self.out.extend(tokens)
+        self.emitted_total += len(tokens)
         if tokens:
             self.last_tok = int(tokens[-1])
 
     def _commit_with_stop(self, tokens: List[int]) -> None:
         detok = self.detokenize if self.detokenize is not None else default_detokenize
         stops = self.sampling.stop
+        self.emitted_total += len(tokens)
         if tokens:
             # the committed window's tip, before any cut: the engine's cache
             # bookkeeping sees the tip it always does

@@ -1,8 +1,8 @@
 """The port's Engine against the JAX Engine on the quantized smoke pair
 (W4A8 target, BVQ draft), weights carried across: greedy tokens must match
 token for token at batch 1 and with 4 requests at max_batch=4.  Also page
-return on abort, the refusal of what the port does not carry yet and the
-pool-sizing checks.
+return on abort, the validation of the profiling and flight-recorder knobs
+and the pool-sizing checks.
 int8 KV and tree speculation are held in tests/test_torch_tree_int8.py,
 sampled requests and stop strings in tests/test_torch_sampled_engine.py."""
 import numpy as np
@@ -93,14 +93,19 @@ def test_abort_returns_pages(pairs):
     assert len(eng.output_tokens(rids[1])) == MAX_TOKENS
 
 
-@pytest.mark.parametrize("cfg", [dict(profile_every_n=2)], ids=["profile_every_n"])
+@pytest.mark.parametrize("cfg", [dict(profile_every_n=-1), dict(flight_ring=-1)],
+                         ids=["profile_every_n", "flight_ring"])
 def test_unported_settings_raise(pairs, cfg):
-    """The EngineConfig features the port does not carry yet are refused at
-    construction (the prefix cache is served: tests/test_torch_prefix_cache.py)."""
+    """The settings the port once refused (device-time profiling) are
+    served now, and the observability knobs validate as the reference's
+    do: a negative ``profile_every_n`` or ``flight_ring`` is a ValueError,
+    while a positive one builds an engine."""
     _, (tt, td) = pairs
-    assert EngineConfig(**cfg).unported() == [f"{k}={v!r}" for k, v in cfg.items()]
-    with pytest.raises(NotImplementedError):
-        Engine(tt, td, EngineConfig(**cfg), device="cpu")
+    with pytest.raises(ValueError):
+        EngineConfig(**cfg)
+    ok = {k: 2 for k in cfg}
+    eng = Engine(tt, td, EngineConfig(**ok), device="cpu")
+    assert eng.cfg == EngineConfig(**ok)
 
 
 def test_num_pages_and_pool_bytes_exclusive():
