@@ -1,7 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA H100 and check it end to end.
 
     python3 chip_smoke.py             # every phase (what a GPU check runs)
-    python3 chip_smoke.py --profile   # also profile a few rounds of seven paths
+    python3 chip_smoke.py --profile   # also profile a few rounds of ten paths
 
 Phases, in order (any failure exits non-zero before the final line):
 
@@ -28,7 +28,11 @@ Phases, in order (any failure exits non-zero before the final line):
    int8), the draft step and the tree verify with half the rows laid out
    as a fused slot's role mask leaves them (table all scratch, length the
    window): the other rows' bits must not change when the scratch page is
-   poisoned.
+   poisoned.  The public configurations' shapes run last
+   (``_family_kernel_cases``): paged attention at G = 4 and 6 (8 kv heads)
+   and Moonlight's 16 heads, the Qwen3-8B R2 plan (m = 12) at 1, 32 and
+   128 tokens, w4a8 at the 151,936- and 163,840-wide heads and K = 12288,
+   bvq at the Qwen3-8B-width draft's weights.
 3. The main path at full width: the paper pair (LLaMA2-7B widths, W4A8 +
    LRU target with all 32 layers, built layer by layer; LLaMA-68M widths,
    BVQ draft) served by ``Engine`` at ``EngineConfig()`` defaults, 4 greedy
@@ -128,7 +132,33 @@ Phases, in order (any failure exits non-zero before the final line):
    the paged path except at a near-tie (the dense-cache decode is
    compared and reported, as on the main path).  The pair is freed after
    it.
-20. Card against CPU at smoke size: one smoke pair built on the CPU from a
+20. Qwen3 path: Qwen3-8B at full width and depth (36 layers, GQA 32/8,
+   qk-norm, d_ff 12288, vocab 151,936) as a W4A8 + LRU target (R2 plan
+   n = 12288, m = 12), built one layer at a time, with the same config cut
+   to 2 layers as a BVQ draft: ``EngineConfig()`` (every main-path kernel
+   launches, block_rotate once per layer of each target forward, rows
+   equal the target-only paged greedy decode except at a near-tie), int8
+   KV (reported against those rows), mixed KV + tree (both tree bodies;
+   rows equal the chain rows of their kind except at a near-tie) and the
+   target drafting for itself (``adaptive=True``: PAR, acceptance 1.0).
+21. MoE path: ``moonshot-v1-16b-a3b`` as the repo defines it (48 layers,
+   64 experts top-6, ~28 B parameters, ~56 GB in bf16) at full width and
+   depth with a 2-layer draft, over paged KV at ``EngineConfig()``: paged
+   attention launches and no quantized kernel does; rows equal the
+   target-only paged greedy decode except at a near-tie of the top-2
+   logits (no router excuse: one card, the same bits at any row count);
+   a self-draft reaches PAR with acceptance 1.0; then the W4A8 MoE
+   forward built from the same weights (the bf16 layers freed as they
+   pack): a prefill and 16 greedy steps over a dense cache with the
+   card's kernels and again with the plain versions on the card, both
+   timed, tokens equal except at a near-tie (top-2, or the first
+   differing expert selections of the row within ROUTER_NEAR_TIE in both
+   runs), w4a8 launching only in the first.
+22. Nemotron path: Nemotron-4-15B in bf16 (squared ReLU, GQA 48/8: G = 6,
+   vocab 256,000, ~15.6 B parameters) at full width and depth with a
+   2-layer draft, 2 requests x 16 tokens: paged attention launches, rows
+   equal the target-only paged greedy decode except at a near-tie.
+23. Card against CPU at smoke size: one smoke pair built on the CPU from a
    fixed seed, copied to the card; the same requests through the port on
    cuda (kernels) and on cpu (plain versions) with seven engines (greedy
    chain, greedy mixed-KV tree, sampled chain, sampled mixed-KV tree, a
@@ -138,13 +168,20 @@ Phases, in order (any failure exits non-zero before the final line):
    a near-tie: of the target's top-2 logits for a greedy row, or, for a
    sampled row, a host decision taken from logit rows that differ by at
    most NEAR_TIE between the devices; the prefix stats must be equal.
+24. Families card against CPU: the smoke configs of phases 20-22
+   (``qwen3-smoke`` W4A8 + BVQ in chain and mixed-KV tree engines,
+   ``moonshot-smoke`` and ``nemotron-smoke`` bf16 chain), the same rule;
+   a MoE row is also excused where card and CPU, replaying the row's
+   common prefix, first select different experts only at router
+   near-ties (k-th against (k+1)-th router logit within ROUTER_NEAR_TIE
+   at that layer and token, in both runs).
 
 Each path prints its tokens/s, rounds, target forwards per emitted token,
 device-to-host copies per round and, on a WDOS engine, its fused-slot
 summary; ``--profile`` adds a torch.profiler breakdown (device busy share,
 kernels, launches and copies, host time, launches per target forward) of
-three rounds of the main, tree, sampled, sampled tree, WDOS, WDOS tree
-and dense paths.
+three rounds of the main, tree, sampled, sampled tree, WDOS, WDOS tree,
+dense, Qwen3, MoE and Nemotron paths.
 
 The last two lines are the kernels summary (JSON) and the result line
 ``{"ok": true, "device": {...}}``.  Weights are random, made from SEED.
@@ -152,6 +189,7 @@ The last two lines are the kernels summary (JSON) and the result line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import math
@@ -173,6 +211,11 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}  # dense, published
 NEAR_TIE = 2e-2  # top-2 logit margin below which a card/CPU divergence is a tie:
 # a last-bit difference can move one dynamic int8 activation across a .5
 # boundary, which shifts a logit by up to ~1e-2 (tests/test_torch_models.py)
+ROUTER_NEAR_TIE = 2e-2  # router k-th vs (k+1)-th logit margin below which a
+# last-bit difference of the same size may pick another expert: held by
+# (layer, token) where two runs first select different experts
+# (``_expert_flips``), and only where two runs compute different bits (card
+# against CPU, kernel against plain version); runs on one card get no excuse
 
 KERNELS = {
     "w4a8_matmul": ("src/repro_torch/kernels/csrc/w4a8_matmul.cu",
@@ -468,19 +511,20 @@ def _poison_tails(kp, vp, vs, table, lengths, w, ps, masks=None):
 
 
 def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, tree=False,
-                masked=()):
-    """``masked`` rows are laid out as a role mask leaves them in a fused
-    WDOS slot (``models/layers.forward_cache_ctx``): their whole table row
-    the scratch page (the pool's last) and their length the window alone;
-    the other rows' bits must not change when the scratch page is
-    poisoned."""
+                masked=(), group=1):
+    """``group`` query heads share each of the ``kvs`` kv heads (GQA: G =
+    n_heads / n_kv).  ``masked`` rows are laid out as a role mask leaves
+    them in a fused WDOS slot (``models/layers.forward_cache_ctx``): their
+    whole table row the scratch page (the pool's last) and their length the
+    window alone; the other rows' bits must not change when the scratch
+    page is poisoned."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attn import paged_attention
     from repro_torch.models.layers import kv_quantize
 
     n_pages = b * mp + 1
-    q = torch.randn((b, w, kvs, 1, hd), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, w, kvs, group, hd), generator=g, device=dev).to(torch.bfloat16)
     kp = torch.randn((n_pages, ps, kvs, hd), generator=g, device=dev).to(torch.bfloat16)
     vp = torch.randn((n_pages, ps, kvs, hd), generator=g, device=dev).to(torch.bfloat16)
     kw, masks = {}, None
@@ -530,9 +574,10 @@ def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, 
     if quantized:
         kd = kd * ref.gather_pages_ref(ks, table)
         vd = vd * ref.gather_pages_ref(vs, table)
-    kd = kd.to(torch.bfloat16).permute(0, 2, 1, 3)  # (B, KVS, S, hd)
-    vd = vd.to(torch.bfloat16).permute(0, 2, 1, 3)
-    qd = q[:, :, :, 0].permute(0, 2, 1, 3)  # (B, KVS, W, hd)
+    # (B, KVS * G, S, hd): each kv head repeated for its G query heads
+    kd = kd.to(torch.bfloat16).permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    vd = vd.to(torch.bfloat16).permute(0, 2, 1, 3).repeat_interleave(group, dim=1)
+    qd = q.permute(0, 2, 3, 1, 4).reshape(b, kvs * group, w, hd)
     s = mp * ps
     pos = torch.arange(s, device=dev)
     base = lens[:, None].long() - w  # (B, 1): window start
@@ -550,7 +595,7 @@ def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, 
     io_bytes = ((q.element_size() + 4) * q.numel() + 4 * table.numel() + 4 * b
                 + (4 * b * w * w if tree else 0))
     bound, by = bound_ms(2 * walked * ps * slot_bytes + io_bytes,
-                         4.0 * w * hd * kvs * walked * ps, "bf16")
+                         4.0 * w * group * hd * kvs * walked * ps, "bf16")
     return dict(
         max_abs_err=float((got - want).abs().max()), tol=2e-5,
         repeat_bitwise_equal=bool(torch.equal(got, paged_attention(q, kp, vp, table, lens, **kw))),
@@ -598,6 +643,72 @@ def check_decode_int8(dev, timer, g, b, s, kvs, hd, length):
         library_ms=timer.ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)),
         bound_ms=bound, bound_by=by,
     )
+
+
+def _family_kernel_cases(dev, timer, g, mb, win, tw, tlens, long_lens):
+    """The shapes the public configurations' paths give the kernels:
+    grouped-query paged attention (Qwen3-8B: 8 kv heads of G = 4;
+    Nemotron-4-15B: 8 of G = 6; Moonlight as the repo defines it: 16 of
+    G = 1; hd = 128), the Qwen3-8B R2 plan (n = 12288, m = 12, k = 6,
+    tiled, B = 768), w4a8 at the Qwen3-8B and Moonlight widths (heads of
+    151,936 and 163,840 channels, w_down K = 12288) and bvq at the
+    Qwen3-8B-width draft's four weight shapes."""
+    cases = []
+    steps = [160, 97, 42, 126, 1, 1, 4, 85]
+    verify = [163, 100, 45, 129, 4, 4, 7, 88]
+    for kvs, group, model in ((8, 4, "Qwen3-8B"), (8, 6, "Nemotron-4-15B")):
+        shape = f"KVS={kvs} G={group} hd=128 ps=16"
+        cases += [
+            ("paged_attention", f"{model} step B=8 W=1 {shape} bf16",
+             lambda k=kvs, gr=group: check_paged(dev, timer, g, mb, 1, k, 128, 16, 11, steps,
+                                                 group=gr)),
+            ("paged_attention", f"{model} verify B=8 W=4 {shape} bf16",
+             lambda k=kvs, gr=group: check_paged(dev, timer, g, mb, win, k, 128, 16, 11, verify,
+                                                 group=gr)),
+            ("paged_attention_int8", f"{model} verify B=8 W=4 {shape} int8",
+             lambda k=kvs, gr=group: check_paged(dev, timer, g, mb, win, k, 128, 16, 11, verify,
+                                                 quantized=True, group=gr)),
+            ("paged_attention_tree", f"{model} tree verify B=8 W=9 {shape} bf16",
+             lambda k=kvs, gr=group: check_paged(dev, timer, g, mb, tw, k, 128, 16, 12, tlens,
+                                                 tree=True, group=gr)),
+            ("paged_attention_int8_tree", f"{model} tree verify B=8 W=9 {shape} int8",
+             lambda k=kvs, gr=group: check_paged(dev, timer, g, mb, tw, k, 128, 16, 12, tlens,
+                                                 quantized=True, tree=True, group=gr)),
+            ("paged_attention", f"{model} long walk B=4 W=4 {shape} bf16 lengths "
+                                f"{'/'.join(map(str, long_lens))}",
+             lambda k=kvs, gr=group: check_paged(dev, timer, g, 4, win, k, 128, 16, 256,
+                                                 long_lens, group=gr)),
+        ]
+    cases += [
+        ("paged_attention", "Moonlight step B=8 W=1 KVS=16 G=1 hd=128 ps=16 bf16",
+         lambda: check_paged(dev, timer, g, mb, 1, 16, 128, 16, 11, steps)),
+        ("paged_attention", "Moonlight verify B=8 W=4 KVS=16 G=1 hd=128 ps=16 bf16",
+         lambda: check_paged(dev, timer, g, mb, win, 16, 128, 16, 11, verify)),
+    ]
+    cases += [
+        ("block_rotate", f"Qwen3-8B R2 plan tokens={t} n=12288 tiled m=12 k=6 bf16 ({what})",
+         lambda t=t: check_rotate_plan(dev, timer, g, t, 12288))
+        for t, what in ((1, "one-token step"), (mb * win, "verify"),
+                        (128, "prefill, 128-token prompt"))
+    ]
+    cases += [
+        ("w4a8_matmul", f"M={mb * win} K={k} N={n} ({which}, verify)",
+         lambda k=k, n=n: check_w4a8(dev, timer, g, mb * win, k, n))
+        for k, n, which in ((4096, 1024, "Qwen3-8B wk/wv"),
+                            (4096, 12288, "Qwen3-8B w_gate/w_up"),
+                            (12288, 4096, "Qwen3-8B w_down"),
+                            (4096, 151936, "Qwen3-8B head"),
+                            (2048, 2048, "Moonlight wq/wk/wv/wo"),
+                            (2048, 163840, "Moonlight head"))
+    ]
+    cases += [
+        ("bvq_matmul", f"M={m} K={k} N={n} bf16 ({which}, Qwen3-8B-width draft {what})",
+         lambda m=m, k=k, n=n: check_bvq(dev, timer, g, m, k, n))
+        for m, what in ((mb, "step"), (mb * 9, "tree 8x9"))
+        for k, n, which in ((4096, 4096, "wq/wo"), (4096, 1024, "wk/wv"),
+                            (4096, 12288, "w_gate/w_up"), (12288, 4096, "w_down"))
+    ]
+    return cases
 
 
 def phase_kernels(dev, seed):
@@ -730,6 +841,7 @@ def phase_kernels(dev, seed):
         cases.append(("decode_attention_int8",
                       f"full LLaMA2-7B cache B=4 S=4096 KVS=32 G=1 hd=128 length={length}",
                       lambda n=length: check_decode_int8(dev, timer, g, 4, 4096, 32, 128, n)))
+    cases += _family_kernel_cases(dev, timer, g, mb, win, tw, tlens, long_lens)
     summary, failed = {}, []
     for name, shape, run in cases:
         rec = run()
@@ -984,7 +1096,7 @@ def phase_tree_path(dev, pair, fp_outs, int8_outs):
     rows = _compare_rows(target, prompts, outs, want, kinds)
     emit(phase="tree_path_check", equal_to_chain=f"{sum(r['equal'] for r in rows)}/{len(rows)}",
          rows=rows, near_tie=NEAR_TIE)
-    bad = [r for r in rows if not r["equal"] and r["top2_margin"] > NEAR_TIE]
+    bad = [r for r in rows if not r["equal"] and not _near_tie(r)]
     if bad:
         raise AssertionError(f"tree path differs from the chain path beyond a near-tie: {bad}")
     return launches
@@ -1035,7 +1147,7 @@ def phase_sampled_path(dev, pair, fp_outs):
     emit(phase="sampled_path_check", greedy_rows_equal_to_main_path=
          f"{sum(r['equal'] for r in rows)}/{len(rows)}", rows=rows, near_tie=NEAR_TIE,
          sampled_rows_equal_to_main_path=sum(outs[i] == fp_outs[i] for i in (0, 2)))
-    bad = [r for r in rows if not r["equal"] and r["top2_margin"] > NEAR_TIE]
+    bad = [r for r in rows if not r["equal"] and not _near_tie(r)]
     if bad:
         raise AssertionError(f"sampled path: greedy rows differ from the main path beyond a "
                              f"near-tie: {bad}")
@@ -1059,20 +1171,33 @@ def phase_sampled_tree_path(dev, pair):
     return sps, outs, log
 
 
-def _divergences(target, prompts, sps, got, want, log_got, log_want, kinds):
+def _near_tie(row) -> bool:
+    """A greedy row's first divergence is a near-tie: the target's top-2
+    logit margin there is at most NEAR_TIE, or (MoE, two runs that compute
+    different bits) the two runs' first expert selections that differ are
+    router near-ties (``_expert_flips``)."""
+    router = row.get("router")
+    return row["top2_margin"] <= NEAR_TIE or (router is not None and router["near_tie"])
+
+
+def _divergences(target, prompts, sps, got, want, log_got, log_want, kinds, routed=None):
     """The rows of two runs of the same requests that differ, each with
     whether it is excused as a near-tie: a greedy row's first divergence
-    at a top-2 margin of at most NEAR_TIE (``_compare_rows``, of the row's
-    storage kind; ``None``: the dense-cache logits), a sampled row's first
+    at a near-tie (``_near_tie``, the margins read from ``_compare_rows``
+    of the row's storage kind; ``None``: the dense-cache logits), a sampled row's first
     differing host decision taken from logit rows within NEAR_TIE of each
-    other (``_first_decision_flip``)."""
+    other (``_first_decision_flip``).  ``routed``: the (MoE) models that
+    produced ``got`` and ``want``, whose router selections a greedy row is
+    then also held by (``_router_flip``)."""
     out = []
     for rid, (p, sp, a, b, kind) in enumerate(zip(prompts, sps, got, want, kinds)):
         if a == b:
             continue
         if sp.greedy:
             row = _compare_rows(target, [p], [a], [b], [kind])[0]
-            out.append(dict(row, request=rid, near_tie=row["top2_margin"] <= NEAR_TIE))
+            if routed is not None:
+                row["router"] = _router_flip(routed, p, a, b)
+            out.append(dict(row, request=rid, near_tie=_near_tie(row)))
         else:
             flip = _first_decision_flip(log_got, log_want, rid)
             out.append(dict(flip or {}, request=rid, near_tie=flip is not None
@@ -1179,33 +1304,46 @@ def phase_self_draft_path(dev, pair, fp_outs):
     are target forwards here); each row equals the main path's except at a
     near-tie.  Both runs print tokens/s, rounds, forwards per emitted token
     and copies per round."""
-    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
-    from repro_torch.core.apsd import PAR
+    from repro_torch.serving.engine import EngineConfig
 
     target, _, prompts = pair
-    sps = [SamplingParams(max_tokens=32)] * len(prompts)
     needs = ["w4a8_matmul", "block_rotate", "paged_attention"]
     for phase, cfg in (("self_draft_path_two_phase", EngineConfig(adaptive=True)),
                        ("self_draft_wdos_path", EngineConfig(adaptive=True, par_mode="wdos"))):
-        eng = Engine(target, target, cfg, device=dev)
-        outs, launches = _drive(phase, eng, prompts, sps, dev, needs=needs, stagger=True)
+        _self_draft(phase, dev, target, prompts, fp_outs, cfg, needs, rotations=True)
+
+
+def _self_draft(phase, dev, target, prompts, want, cfg, needs, rotations, max_tokens=32):
+    """``target`` drafting for itself under ``cfg`` (adaptive), greedy, one
+    request admitted per step: some controller must reach PAR (a long_dl
+    window), every proposal must be accepted, and each row must equal
+    ``want`` except at a near-tie; with ``rotations`` the R2 rotation runs
+    once per layer of every forward."""
+    from repro_torch.core.apsd import PAR
+    from repro_torch.serving.engine import Engine, SamplingParams
+
+    sps = [SamplingParams(max_tokens=max_tokens)] * len(prompts)
+    eng = Engine(target, target, cfg, device=dev)
+    outs, launches = _drive(phase, eng, prompts, sps, dev, needs=needs, stagger=True)
+    if rotations:
         _check_rotations(phase, launches, target.cfg.n_layers)
-        windows = [eng.request(r).history for r in range(len(prompts))]
-        long_rounds = sum(h[0] == PAR and h[1] == cfg.long_dl for hist in windows for h in hist)
-        emit(phase=f"{phase}_windows", long_dl_rounds=long_rounds,
-             history=[[list(map(int, h)) for h in hist] for hist in windows])
-        if long_rounds <= 0:
-            raise AssertionError(f"{phase}: no controller reached PAR (no long_dl window)")
-        # the draft is the target: its one-token step and the window verify
-        # compute each row with the same bits (kernels and torch ops alike
-        # are gated row-count independent), so every proposal is accepted
-        acceptance = eng.summary()["acceptance_rate"]
-        emit(phase=f"{phase}_acceptance", acceptance_rate=acceptance)
-        if acceptance != 1.0:
-            raise AssertionError(f"{phase}: acceptance {acceptance} < 1 with the target "
-                                 f"drafting for itself")
-        _compare_decisions(phase, target, prompts, sps, outs, fp_outs, None, None,
-                           ["none"] * len(prompts))
+    windows = [eng.request(r).history for r in range(len(prompts))]
+    long_rounds = sum(h[0] == PAR and h[1] == cfg.long_dl for hist in windows for h in hist)
+    emit(phase=f"{phase}_windows", long_dl_rounds=long_rounds,
+         history=[[list(map(int, h)) for h in hist] for hist in windows])
+    if long_rounds <= 0:
+        raise AssertionError(f"{phase}: no controller reached PAR (no long_dl window)")
+    # the draft is the target: its one-token step and the window verify
+    # compute each row with the same bits (kernels and torch ops alike
+    # are gated row-count independent), so every proposal is accepted
+    acceptance = eng.summary()["acceptance_rate"]
+    emit(phase=f"{phase}_acceptance", acceptance_rate=acceptance)
+    if acceptance != 1.0:
+        raise AssertionError(f"{phase}: acceptance {acceptance} < 1 with the target "
+                             f"drafting for itself")
+    _compare_decisions(phase, target, prompts, sps, outs, want, None, None,
+                       ["none"] * len(prompts))
+    return launches
 
 
 def phase_stop_path(dev, pair, fp_outs):
@@ -1327,13 +1465,94 @@ def _first_divergence_margin(target, prompt, a, b, kv_quant=None):
         store = device_pool_store(pool, target.device, kv_quant)
         table = torch.arange(pool.num_pages, dtype=torch.int32, device=target.device)
         _, cache = iface.prefill(target.params, seq[None, :-1])
-        E._scatter_prefill(store, cache["attn"]["k"][:, 0], cache["attn"]["v"][:, 0], table,
-                           n - 1)
+        E._scatter_prefill(store, cache["attn"]["k"][:, 0], cache["attn"]["v"][:, 0],
+                           table, n - 1)
         logits = E._make_paged_step(target)(
             target.params, seq[None, -1:], store, table[None],
             torch.tensor([n - 1], dtype=torch.int32, device=target.device))
     top2 = torch.topk(logits[0, -1].float(), 2).values
     return i, float(top2[0] - top2[1])
+
+
+class _RouterLog:
+    """Every MoE layer's expert selection in the forwards run inside the
+    context: per ``models/layers.moe_apply_dense`` call (both MoE forwards
+    call it, layer by layer), the (B, T, k) expert ids each token selects,
+    ascending, and the (B, T) margin between its k-th and (k+1)-th router
+    logit, read from the logits the combine itself computes (patched
+    ``topk_gates``, in the combine's fixed row blocks)."""
+
+    def __enter__(self):
+        from repro_torch.models import layers as L
+
+        self.calls, self._orig = [], (L.moe_apply_dense, L.topk_gates)
+        blocks = []
+
+        def topk_gates(logits, k):
+            blocks.append(logits)
+            return self._orig[1](logits, k)
+
+        def moe_apply_dense(p, x, cfg):
+            blocks.clear()
+            out = self._orig[0](p, x, cfg)
+            logits = torch.cat(blocks)[:x.shape[0] * x.shape[1]]
+            vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+            k = cfg.top_k
+            self.calls.append((torch.sort(ids[:, :k], dim=-1).values.reshape(*x.shape[:2], k),
+                               (vals[:, k - 1] - vals[:, k]).reshape(x.shape[:2])))
+            return out
+
+        L.moe_apply_dense, L.topk_gates = moe_apply_dense, topk_gates
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers as L
+
+        L.moe_apply_dense, L.topk_gates = self._orig
+
+
+def _expert_flips(log_a, log_b, n_layers, row, last):
+    """Where two runs of the same forwards (``_RouterLog``s, the same token
+    inputs up to position ``last``) select different experts for batch row
+    ``row``.  A flip at (layer l, position t) can change the router inputs
+    only of layers above l at positions t and later, so the flips that no
+    other flip explains are those with no flip at a lower layer and an
+    earlier or equal position: the roots.  The divergence is a router
+    near-tie when there are flips and every root's own margin is within
+    ROUTER_NEAR_TIE in both runs."""
+    if len(log_a.calls) != len(log_b.calls):
+        raise AssertionError(f"router logs of {len(log_a.calls)} and {len(log_b.calls)} calls")
+    flips, offset = [], 0
+    for c, ((ids_a, m_a), (ids_b, m_b)) in enumerate(zip(log_a.calls, log_b.calls)):
+        t = ids_a.shape[1]
+        differ = (ids_a[row].cpu() != ids_b[row].cpu()).any(dim=-1)
+        for j in torch.nonzero(differ).flatten().tolist():
+            if offset + j <= last:
+                flips.append((c % n_layers, offset + j, float(m_a[row, j]), float(m_b[row, j])))
+        if c % n_layers == n_layers - 1:
+            offset += t
+    roots = []
+    for f in sorted(flips):
+        if not any(r[0] < f[0] and r[1] <= f[1] for r in roots):
+            roots.append(f)
+    return {"flips": len(flips), "roots": [list(r) for r in roots[:8]], "n_roots": len(roots),
+            "near_tie": bool(roots) and all(max(r[2], r[3]) <= ROUTER_NEAR_TIE for r in roots)}
+
+
+def _router_flip(models, prompt, a, b):
+    """The router rule for a greedy row where ``models[0]`` emitted ``a`` and
+    ``models[1]`` emitted ``b``: both replay the prompt and the common
+    prefix through the engine's paged path (``_paged_replay``, which gives
+    each token the bits a verify window gives it), their expert
+    selections recorded, and ``_expert_flips`` over them."""
+    i = next(j for j in range(len(a)) if a[j] != b[j])
+    logs = []
+    for model in models:
+        with _RouterLog() as log:
+            _paged_replay(model, prompt, i + 1, forced=a[:i])
+        logs.append(log)
+    return dict(_expert_flips(logs[0], logs[1], models[0].cfg.n_layers, 0, len(prompt) - 1 + i),
+                position=i)
 
 
 class _DecisionLog:
@@ -2124,12 +2343,19 @@ def _server_cli(timeout_s: float = 300.0):
 
 
 def _paged_greedy(target, prompt, n):
-    """Target-only greedy decode through the engine's own paged path: the
-    dense prefill of prompt[:-1] scattered into a one-request fp store,
-    then one-token paged steps, over a table as wide as an engine's at
-    ``max_model_len = s_max``.  Every op of a forward gives a row the same
-    bits at any row count, so a lossless greedy speculative decode must
+    """Target-only greedy decode through the engine's own paged path
+    (``_paged_replay``).  Every op of a forward gives a row the same bits
+    at any row count, so a lossless greedy speculative decode must
     reproduce these tokens exactly."""
+    return _paged_replay(target, prompt, n)
+
+
+def _paged_replay(target, prompt, n, forced=()):
+    """``n`` argmax tokens through the engine's own paged path: the dense
+    prefill of prompt[:-1] scattered into a one-request fp store, then
+    one-token paged steps, over a table as wide as an engine's at
+    ``max_model_len = s_max``; step j feeds ``forced[j - 1]`` where
+    given, else the previous step's argmax."""
     from repro_torch.serving import engine as E
     from repro_torch.serving.paged_cache import device_pool_store, pages_for
 
@@ -2148,6 +2374,8 @@ def _paged_greedy(target, prompt, n):
         cur = torch.argmax(step(target.params, cur, store, table, length)[:, -1], dim=-1)
         cur = cur.to(torch.int32).reshape(1, 1)
         out.append(int(cur))
+        if i < len(forced):
+            cur = torch.tensor([[forced[i]]], dtype=torch.int32, device=dev)
     return out
 
 
@@ -2173,9 +2401,7 @@ def phase_dense_path(dev, prompts, profile=False):
     sp = SamplingParams(max_tokens=32)
     outs, launches = _drive("dense_path", Engine(target, draft, EngineConfig(), device=dev),
                             prompts, sp, dev, needs=["paged_attention"])
-    quantized = [k for k in ("w4a8_matmul", "bvq_matmul", "block_rotate") if launches.get(k)]
-    if quantized:
-        raise AssertionError(f"dense path launched {quantized}")
+    _no_quantized("dense_path", launches)
     dense = _compare_rows(target, prompts, outs,
                           [greedy_reference(target, p, sp.max_tokens) for p in prompts],
                           [None] * len(prompts))
@@ -2192,6 +2418,294 @@ def phase_dense_path(dev, prompts, profile=False):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# Phases 20-23: the repo's public configurations
+# ---------------------------------------------------------------------------
+
+QUANTIZED_KERNELS = ("w4a8_matmul", "bvq_matmul", "block_rotate")
+
+
+def _build_arch(arch, quantize, dev):
+    """``launch.serve.build_arch_pair``: the target at the config's full
+    width and depth, the draft the same config cut to 2 layers."""
+    from repro_torch.core.costs import tensor_bytes
+    from repro_torch.launch.serve import build_arch_pair
+    from repro_torch.models.lm import param_count
+
+    t0 = time.perf_counter()
+    target, draft = build_arch_pair(arch, seed=SEED, s_max=256, quantize=quantize, device=dev)
+    torch.cuda.synchronize()
+    emit(phase=f"build_{arch}", seconds=time.perf_counter() - t0, target=target.cfg.name,
+         target_mode=target.mode, target_layers=target.cfg.n_layers,
+         target_parameters=None if quantize else param_count(target.params),
+         target_bytes=tensor_bytes(target.params), draft_mode=draft.mode,
+         reduced=[f"draft: {target.cfg.n_layers} -> {draft.cfg.n_layers} layers"],
+         memory_allocated=torch.cuda.memory_allocated(dev))
+    return target, draft
+
+
+def _no_quantized(phase, launches):
+    ran = [k for k in QUANTIZED_KERNELS if launches.get(k)]
+    if ran:
+        raise AssertionError(f"{phase}: a bf16 path launched {ran}")
+
+
+def phase_qwen3_path(dev, profile=False):
+    """Qwen3-8B at full width and depth (36 layers, GQA 32/8, qk-norm, d_ff
+    12288, vocab 151,936) as a W4A8 + LRU target (R2 plan n = 12288, m =
+    12) with a 2-layer BVQ draft of the same config: ``EngineConfig()``
+    (rows equal the target-only paged greedy decode except at a near-tie;
+    every main-path kernel launches, block_rotate once per layer of each
+    target forward), int8 KV (reported against the fp rows), mixed KV +
+    tree (each row equals the chain row of its kind except at a near-tie;
+    both tree bodies launch), and the target drafting for itself
+    (``adaptive=True``: PAR reached, acceptance 1.0).  Frees the pair."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    target, draft = _build_arch("qwen3-8b", True, dev)
+    prompts = _prompts(4, 32, 128, target.cfg.vocab, SEED)
+    sp = SamplingParams(max_tokens=32)
+    launches = {}
+    outs, launches["qwen3_path"] = _drive("qwen3_path",
+                                          Engine(target, draft, EngineConfig(), device=dev),
+                                          prompts, sp, dev, needs=MAIN_KERNELS)
+    _check_rotations("qwen3_path", launches["qwen3_path"], target.cfg.n_layers)
+    _compare_decisions("qwen3_path", target, prompts, [sp] * len(prompts), outs,
+                       [_paged_greedy(target, p, sp.max_tokens) for p in prompts], None, None,
+                       ["none"] * len(prompts))
+    if profile:
+        phase_profile(dev, (target, draft, prompts), "qwen3_path", EngineConfig(),
+                      [sp] * len(prompts))
+    int8_outs, launches["qwen3_int8_path"] = _drive(
+        "qwen3_int8_path", Engine(target, draft, EngineConfig(kv_quant="int8"), device=dev),
+        prompts, sp, dev, needs=["w4a8_matmul", "block_rotate", "bvq_matmul",
+                                 "paged_attention_int8"])
+    rows = _compare_rows(target, prompts, int8_outs, outs, ["none"] * len(prompts))
+    emit(phase="qwen3_int8_path_check", equal_to_fp=f"{sum(r['equal'] for r in rows)}"
+         f"/{len(rows)}", rows=rows, gated=False)
+    kinds = ["int8" if i % 2 else "none" for i in range(len(prompts))]
+    eng = Engine(target, draft, EngineConfig(kv_quant="mixed", spec_mode="tree"), device=dev)
+    tree_outs, launches["qwen3_tree_path"] = _drive(
+        "qwen3_tree_path", eng, prompts, [SamplingParams(max_tokens=32, kv_quant=k)
+                                          for k in kinds], dev,
+        needs=["w4a8_matmul", "block_rotate", "bvq_matmul", "paged_attention_tree",
+               "paged_attention_int8_tree"])
+    _check_rotations("qwen3_tree_path", launches["qwen3_tree_path"], target.cfg.n_layers)
+    want = [i8 if k == "int8" else fp for k, fp, i8 in zip(kinds, outs, int8_outs)]
+    rows = _compare_rows(target, prompts, tree_outs, want, kinds)
+    emit(phase="qwen3_tree_path_check", equal_to_chain=f"{sum(r['equal'] for r in rows)}"
+         f"/{len(rows)}", rows=rows, near_tie=NEAR_TIE)
+    bad = [r for r in rows if not r["equal"] and not _near_tie(r)]
+    if bad:
+        raise AssertionError(f"qwen3 tree rows differ from the chain rows beyond a near-tie: {bad}")
+    launches["qwen3_self_draft_path"] = _self_draft(
+        "qwen3_self_draft_path", dev, target, prompts, outs, EngineConfig(adaptive=True),
+        ["w4a8_matmul", "block_rotate", "paged_attention"], rotations=True)
+    del target, draft, eng
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _greedy_dense(forward, params, cfg, tokens, steps, dev):
+    """A prefill of ``tokens`` (B, P) and ``steps`` greedy one-token steps
+    over a dense cache: (B, steps + 1) tokens, the top-2 logit margin of
+    each, and the wall seconds (host clock, synchronized)."""
+    from repro_torch.models import lm
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = lm.init_cache(cfg, tokens.shape[0], tokens.shape[1] + steps + 1, dev)
+    logits, cache = forward(params, cfg, tokens, cache)
+    out, margins = [], []
+    for i in range(steps + 1):
+        top2 = torch.topk(logits[:, -1].float(), 2).values
+        margins.append(top2[:, 0] - top2[:, 1])
+        out.append(torch.argmax(logits[:, -1], dim=-1).to(torch.int32))
+        if i < steps:
+            logits, cache = forward(params, cfg, out[-1][:, None], cache)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (torch.stack(out, 1).tolist(), torch.stack(margins, 1).tolist(), wall)
+
+
+def _moe_w4a8(dev, target, prompts, steps=16):
+    """The W4A8 MoE forward (``quantize_moe_lm`` + ``apply_quantized_moe_lm``,
+    dense cache) from the bf16 target's weights, each bf16 layer freed as
+    it is packed: a prefill of the prompts (cut to the shortest) and
+    ``steps`` greedy steps with the card's kernels, then again with the
+    plain versions on the card (``ops.w4a8_matmul`` swapped for
+    ``ref.w4a8_matmul_ref2``), both timed.  Tokens must be equal except at
+    a near-tie: the top-2 margin, or, where a row differs, both runs
+    repeated with their expert selections recorded (``_RouterLog``; the
+    kernel run must repeat its tokens bit for bit) and the row's first
+    differing selections held by ``_expert_flips``.  w4a8 must launch in
+    the first run, never in the second.  Returns the first run's
+    launches."""
+    from repro_torch.core.costs import tensor_bytes
+    from repro_torch.kernels import _lib, ops, ref
+    from repro_torch.kernels.w4a8_matmul import unprepack
+    from repro_torch.serving import quantized_lm as qlm
+
+    cfg, params = target.cfg, target.params
+    t0 = time.perf_counter()
+    qparams = qlm.quantize_moe_lm(dict(params, layers=[]), cfg)  # embedding, head, norm
+    layers = params["layers"]
+    for i in range(len(layers)):
+        qparams["layers"].append(qlm.quantize_moe_layer(layers[i], cfg))
+        layers[i] = None  # the bf16 experts go as their int4 copy arrives
+    torch.cuda.synchronize()
+    emit(phase="moe_w4a8_build", seconds=time.perf_counter() - t0,
+         bytes=tensor_bytes(qparams), memory_allocated=torch.cuda.memory_allocated(dev))
+    n = min(len(p) for p in prompts)
+    tokens = torch.as_tensor(np.stack([p[:n] for p in prompts]), device=dev)
+    def run(record):
+        with _RouterLog() if record else contextlib.nullcontext() as log:
+            out = _greedy_dense(qlm.apply_quantized_moe_lm, qparams, cfg, tokens, steps, dev)
+        return out, log
+
+    def plain(xq, wp, sx, sw):
+        return ref.w4a8_matmul_ref2(xq, unprepack(wp, xq.shape[1], sw.shape[-1]), sx, sw)
+
+    def run_plain(record):
+        saved, ops.w4a8_matmul = ops.w4a8_matmul, plain
+        try:
+            return run(record)
+        finally:
+            ops.w4a8_matmul = saved
+
+    _lib.launches.clear()
+    (got, margins, wall), _ = run(False)
+    launches = dict(_lib.launches)
+    _lib.launches.clear()
+    (want, _, plain_wall), _ = run_plain(False)
+    plain_launches = dict(_lib.launches)
+    rows, logs = [], None
+    for r, (a, b, m) in enumerate(zip(got, want, margins)):
+        if a == b:
+            rows.append({"equal": True})
+            continue
+        if logs is None:
+            (again, _, _), log_k = run(True)
+            if again != got:
+                raise AssertionError("moe_w4a8_path: the kernel run did not repeat its tokens")
+            logs = (log_k, run_plain(True)[1])
+        i = next(j for j in range(len(a)) if a[j] != b[j])
+        rows.append({"equal": False, "row": r, "position": i, "top2_margin": m[i],
+                     "router": _expert_flips(*logs, cfg.n_layers, r, n - 1 + i)})
+    emit(phase="moe_w4a8_path", rows=len(prompts), prompt_len=n, tokens=steps + 1,
+         wall_s=wall, tokens_per_s=len(prompts) * (steps + 1) / wall, plain_wall_s=plain_wall,
+         launches=launches, plain_launches=plain_launches,
+         equal_to_plain=f"{sum(r['equal'] for r in rows)}/{len(rows)}", divergences=rows)
+    if launches.get("w4a8_matmul", 0) <= 0 or plain_launches.get("w4a8_matmul", 0):
+        raise AssertionError(f"moe_w4a8_path: w4a8 launches {launches} / plain {plain_launches}")
+    bad = [r for r in rows if not r["equal"] and not _near_tie(r)]
+    if bad:
+        raise AssertionError(f"moe_w4a8_path: kernel and plain tokens differ beyond a near-tie: "
+                             f"{bad}")
+    del qparams
+    return launches
+
+
+def phase_moe_path(dev, profile=False):
+    """``moonshot-v1-16b-a3b`` as the repo defines it (48 layers, 64
+    experts top-6, d_ff 1408 per expert; ~28 B parameters, ~56 GB in bf16)
+    at full width and depth with a 2-layer bf16 draft, over paged KV at
+    ``EngineConfig()``: paged attention launches, no quantized kernel
+    does, rows equal the target-only paged greedy decode except at a
+    top-2 near-tie; then the target drafting for itself
+    (``adaptive=True``: PAR, acceptance 1.0); then the W4A8 MoE forward
+    built from the same weights (``_moe_w4a8``).  Frees the models."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    target, draft = _build_arch("moonshot-v1-16b-a3b", False, dev)
+    prompts = _prompts(4, 32, 128, target.cfg.vocab, SEED)
+    sp = SamplingParams(max_tokens=32)
+    launches = {}
+    outs, launches["moe_path"] = _drive("moe_path",
+                                        Engine(target, draft, EngineConfig(), device=dev),
+                                        prompts, sp, dev, needs=["paged_attention"])
+    _no_quantized("moe_path", launches["moe_path"])
+    _compare_decisions("moe_path", target, prompts, [sp] * len(prompts), outs,
+                       [_paged_greedy(target, p, sp.max_tokens) for p in prompts], None, None,
+                       ["none"] * len(prompts))
+    if profile:
+        phase_profile(dev, (target, draft, prompts), "moe_path", EngineConfig(),
+                      [sp] * len(prompts))
+    del draft
+    launches["moe_self_draft_path"] = _self_draft(
+        "moe_self_draft_path", dev, target, prompts, outs, EngineConfig(adaptive=True),
+        ["paged_attention"], rotations=False)
+    launches["moe_w4a8_path"] = _moe_w4a8(dev, target, prompts)
+    del target
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_nemotron_path(dev, profile=False):
+    """Nemotron-4-15B (squared-ReLU MLP, GQA 48/8 so G = 6, vocab 256,000;
+    ~15.6 B parameters, ~31 GB in bf16) at full width and depth with a
+    2-layer bf16 draft, 2 requests x 16 tokens at ``EngineConfig()``:
+    paged attention launches, no quantized kernel does, rows equal the
+    target-only paged greedy decode except at a near-tie.  Frees the
+    pair."""
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    target, draft = _build_arch("nemotron-4-15b", False, dev)
+    prompts = _prompts(2, 32, 128, target.cfg.vocab, SEED)
+    sp = SamplingParams(max_tokens=16)
+    outs, launches = _drive("nemotron_path", Engine(target, draft, EngineConfig(), device=dev),
+                            prompts, sp, dev, needs=["paged_attention"])
+    _no_quantized("nemotron_path", launches)
+    _compare_decisions("nemotron_path", target, prompts, [sp] * len(prompts), outs,
+                       [_paged_greedy(target, p, sp.max_tokens) for p in prompts], None, None,
+                       ["none"] * len(prompts))
+    if profile:
+        phase_profile(dev, (target, draft, prompts), "nemotron_path", EngineConfig(),
+                      [sp] * len(prompts))
+    del target, draft
+    torch.cuda.empty_cache()
+    return {"nemotron_path": launches}
+
+
+def phase_families_card_vs_cpu(dev):
+    """The smoke configs of the three public paths, built on the CPU from
+    SEED and copied to the card: ``qwen3-smoke`` as a W4A8 target with a
+    BVQ draft (chain, and mixed KV + tree), ``moonshot-smoke`` and
+    ``nemotron-smoke`` as bf16 pairs (chain); 4 greedy requests each
+    through the port on cuda (kernels) and on cpu (plain versions): tokens
+    equal except at a near-tie (top-2, or for the MoE pair the router rule
+    of ``_router_flip``)."""
+    from repro_torch.launch.serve import build_arch_pair, to_device
+    from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
+
+    bad = []
+    for arch, quantize in (("qwen3-8b", True), ("moonshot-v1-16b-a3b", False),
+                           ("nemotron-4-15b", False)):
+        t_cpu, d_cpu = build_arch_pair(arch, seed=SEED, s_max=128, quantize=quantize, smoke=True,
+                                       device="cpu")
+        t_gpu, d_gpu = to_device(t_cpu, dev), to_device(d_cpu, dev)
+        prompts = _prompts(4, 3, 24, t_cpu.cfg.vocab, SEED + 1)
+        kinds = ["int8" if i % 2 else "none" for i in range(len(prompts))]
+        runs = [("chain", EngineConfig(max_batch=4), [None] * len(prompts))]
+        if quantize:
+            runs.append(("mixed_tree", EngineConfig(max_batch=4, kv_quant="mixed",
+                                                    spec_mode="tree"), kinds))
+        for name, cfg, ks in runs:
+            sps = [SamplingParams(max_tokens=32, kv_quant=k) for k in ks]
+            gpu, _ = _run(Engine(t_gpu, d_gpu, cfg, device=dev), prompts, sps)
+            cpu, _ = _run(Engine(t_cpu, d_cpu, cfg, device="cpu"), prompts, sps)
+            gpu, cpu = [o.tolist() for o in gpu], [o.tolist() for o in cpu]
+            routed = (t_gpu, t_cpu) if t_cpu.cfg.n_experts else None
+            ties = _divergences(t_cpu, prompts, sps, gpu, cpu, None, None,
+                                [None] * len(prompts), routed=routed)
+            emit(phase="families_card_vs_cpu", config=t_cpu.cfg.name, engine=name,
+                 equal=f"{len(prompts) - len(ties)}/{len(prompts)}", divergences=ties)
+            bad += [dict(t, config=t_cpu.cfg.name, engine=name) for t in ties
+                    if not t["near_tie"]]
+    if bad:
+        raise AssertionError(f"card and CPU tokens differ beyond a near-tie: {bad}")
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2206,7 +2720,7 @@ def _tensors(tree):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="profile a few rounds of seven of the paths "
+                    help="profile a few rounds of ten of the paths "
                          "(torch.profiler)")
     args = ap.parse_args(argv)
 
@@ -2266,7 +2780,11 @@ def main(argv=None) -> int:
     del pair
     torch.cuda.empty_cache()
     launches["dense_path"] = phase_dense_path(dev, prompts, profile=args.profile)
+    launches.update(phase_qwen3_path(dev, profile=args.profile))
+    launches.update(phase_moe_path(dev, profile=args.profile))
+    launches.update(phase_nemotron_path(dev, profile=args.profile))
     phase_card_vs_cpu(dev, SEED)
+    phase_families_card_vs_cpu(dev)
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": [
         {

@@ -45,12 +45,19 @@ def _embed_table(params) -> torch.Tensor:
 
 
 def linear_params(cfg) -> int:
-    """Parameters of every linear of a dense decoder: per layer the q, k,
-    v and o projections and the gate, up and down of the SwiGLU MLP, plus
-    the LM head."""
-    d, hd = cfg.d_model, cfg.hd
-    per_layer = d * (cfg.n_heads + 2 * cfg.n_kv) * hd + cfg.n_heads * hd * d + 3 * d * cfg.d_ff
-    return cfg.n_layers * per_layer + d * cfg.vocab_padded
+    """Parameters of every linear a token's forward runs: per layer the q,
+    k and v projections (k and v over the ``n_kv`` heads of GQA) and o,
+    then the FFN: gate, up and down of a SwiGLU MLP, up and down of a
+    two-matrix (squared-ReLU, GELU) one, or in the MoE family the f32
+    router and every expert's gate, up and down (the dense combine runs
+    each token through every expert); plus the LM head."""
+    d, hd, f = cfg.d_model, cfg.hd, cfg.d_ff
+    attn = d * (cfg.n_heads + 2 * cfg.n_kv) * hd + cfg.n_heads * hd * d
+    if cfg.n_experts:
+        ffn = d * cfg.n_experts + 3 * d * f * cfg.n_experts
+    else:
+        ffn = (3 if cfg.act == "swiglu" else 2) * d * f
+    return cfg.n_layers * (attn + ffn) + d * cfg.vocab_padded
 
 
 def kv_token_bytes(store: Dict[str, torch.Tensor]) -> int:

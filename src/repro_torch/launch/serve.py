@@ -8,7 +8,9 @@ repro/launch/serve.py)::
 with the LRU rotation, DLM_SMOKE compressed with BVQ); ``build_paper_pair``
 builds it at the paper's widths (LLaMA2-7B target, LLaMA-68M draft),
 initialising and quantizing the target one layer at a time so its
-full-precision weights are never resident together.  With
+full-precision weights are never resident together; ``build_arch_pair``
+does the same for any of the repo's attention-family configurations
+(target at full width and depth, a 2-layer draft of the same config).  With
 ``quantize=False`` both build the dense pair instead: the same random
 weights, served in the model dtype by ``lm.apply_lm`` (``mode="bf16"``).
 Weights are random, drawn from a ``torch.Generator`` seeded by ``seed`` on
@@ -23,6 +25,7 @@ from typing import List, Tuple
 
 import torch
 
+from repro_torch import configs
 from repro_torch.configs.paper_pair import DLM, DLM_SMOKE, TLM, TLM_SMOKE
 from repro_torch.core import bvq as bvq_mod
 from repro_torch.core import prng
@@ -32,14 +35,15 @@ from repro_torch.models import lm
 from repro_torch.serving import quantized_lm as qlm
 from repro_torch.serving.engine import ServingModel, make_interface, serve_apsd, serve_sd
 
-__all__ = ["PAIR_BVQ", "build_pair", "build_paper_pair", "greedy_reference", "main",
-           "to_device"]
+__all__ = ["PAIR_BVQ", "build_pair", "build_paper_pair", "build_arch_pair", "greedy_reference",
+           "main", "to_device"]
 
 # the draft's compression settings (as in the reference's build_pair)
 PAIR_BVQ = bvq_mod.BVQConfig(
     vec_dim=4, codebook_size=64, block_cols=32, kmeans_iters=8, qat_steps=0
 )
 _BVQ_SEED = 7
+ARCH_DRAFT_LAYERS = 2  # build_arch_pair's draft: the target's config cut to this depth
 
 
 def _generator(device, seed: int) -> torch.Generator:
@@ -71,13 +75,11 @@ def build_pair(seed: int = 0, s_max: int = 256, quantize: bool = True,
     return _serving_pair(TLM_SMOKE, tparams, DLM_SMOKE, dparams, quantize, s_max, device)
 
 
-def build_paper_pair(seed: int = 0, s_max: int = 256, quantize: bool = True,
-                     device="cuda") -> Tuple[ServingModel, ServingModel]:
-    """The pair at the paper's widths and depths (all 32 target layers),
-    the target made one layer at a time on ``device``: quantized as it is
-    made, or kept in bf16 with ``quantize=False`` (6.7 B parameters,
-    ~13.5 GB)."""
-    tcfg = TLM
+def _layerwise_pair(tcfg, dcfg, seed: int, s_max: int, quantize: bool,
+                    device) -> Tuple[ServingModel, ServingModel]:
+    """The pair with the target made one layer at a time on ``device``:
+    quantized to W4A8 + LRU as each layer is made, so its full-precision
+    weights are never resident together, or kept in the model dtype."""
     gen = _generator(device, seed)
     emb = lm.init_embed(gen, tcfg, device)
     if quantize:
@@ -88,8 +90,31 @@ def build_paper_pair(seed: int = 0, s_max: int = 256, quantize: bool = True,
     else:
         tparams = dict(emb, layers=[lm.init_layer(gen, tcfg, device)
                                     for _ in range(tcfg.n_layers)])
-    dparams = lm.init_lm(gen, DLM, device)
-    return _serving_pair(tcfg, tparams, DLM, dparams, quantize, s_max, device)
+    dparams = lm.init_lm(gen, dcfg, device)
+    return _serving_pair(tcfg, tparams, dcfg, dparams, quantize, s_max, device)
+
+
+def build_paper_pair(seed: int = 0, s_max: int = 256, quantize: bool = True,
+                     device="cuda") -> Tuple[ServingModel, ServingModel]:
+    """The pair at the paper's widths and depths (all 32 target layers),
+    the target made one layer at a time: quantized as it is made, or kept
+    in bf16 with ``quantize=False`` (6.7 B parameters, ~13.5 GB)."""
+    return _layerwise_pair(TLM, DLM, seed, s_max, quantize, device)
+
+
+def build_arch_pair(arch: str, seed: int = 0, s_max: int = 256, quantize: bool = True,
+                    smoke: bool = False, device="cuda") -> Tuple[ServingModel, ServingModel]:
+    """A pair of one of the repo's configurations (``configs.ARCH_IDS``):
+    the target at the config's full width and depth (``smoke``: its smoke
+    config), made one layer at a time; the draft the same config cut to
+    ``ARCH_DRAFT_LAYERS`` layers, with weights of its own.  ``quantize``: a
+    W4A8 + LRU target and a BVQ draft (the dense family's SwiGLU blocks
+    only, as in the reference); else both served in the model dtype (any
+    attention family, MoE included)."""
+    tcfg = configs.get_smoke(arch) if smoke else configs.get_config(arch)
+    dcfg = dataclasses.replace(tcfg, n_layers=ARCH_DRAFT_LAYERS,
+                               name=f"{tcfg.name}-{ARCH_DRAFT_LAYERS}-layer-draft")
+    return _layerwise_pair(tcfg, dcfg, seed, s_max, quantize, device)
 
 
 def _to(tree, device):

@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["Family", "ModelConfig"]
+__all__ = ["Family", "ModelConfig", "ShapeConfig", "SHAPES"]
 
 
 class Family(str, enum.Enum):
@@ -103,3 +103,23 @@ class ModelConfig:
     @property
     def is_encdec(self) -> bool:
         return self.family is Family.AUDIO
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}

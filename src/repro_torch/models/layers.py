@@ -1,7 +1,8 @@
 """Layer library of the serving forwards (torch counterpart of the parts of
-repro/models/layers.py the dense serving forwards reach): norms, rotary,
-the dense family's attention and SwiGLU blocks, prefill attention over a
-dense cache, and the paged KV cache.  Every row-wise op gives a row the
+repro/models/layers.py the serving forwards reach): norms, rotary, the
+attention block (with Qwen3's per-head qk-norm), the SwiGLU / squared-ReLU
+/ GELU MLPs, the MoE block's dense combine, prefill attention over a dense
+cache, and the paged KV cache.  Every row-wise op gives a row the
 same bits whatever the number of rows in the call (tests/test_torch_rows.py),
 so a speculative verify scores a row exactly as a one-token step does.
 
@@ -12,7 +13,10 @@ plain version on the CPU); a dense cache and the cache-free case run the
 plain torch ``decode_attention`` / ``flash_attention``, as they are plain
 jnp in the reference.  The dense blocks' linears are plain torch matmuls
 (``linear``), as the reference's are ``einsum``s outside any Pallas
-kernel."""
+kernel.  The MoE block runs the reference's single-device dense combine
+(``moe_apply_dense``: every token through every expert, gated by the
+softmax of its top-k router logits) as batched torch products over the
+expert axis, in the same fixed row blocks."""
 from __future__ import annotations
 
 import dataclasses
@@ -28,12 +32,16 @@ from repro_torch.models.common import ModelConfig
 __all__ = [
     "row_mean_sq",
     "rmsnorm",
+    "qk_head_norm",
     "rope",
     "silu_mul",
     "kv_store_heads",
     "linear",
     "attention_apply",
     "mlp_apply",
+    "topk_gates",
+    "moe_apply_dense",
+    "moe_apply",
     "attend",
     "advance_cache",
     "flash_attention",
@@ -69,6 +77,13 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     y = xf * torch.rsqrt(row_mean_sq(xf) + eps)
     return (y * params["g"].float()).to(x.dtype)
+
+
+def qk_head_norm(x: torch.Tensor, g: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Qwen3's RMSNorm of each head over hd (the reference's
+    ``_qk_head_norm``), its mean staged by ``row_mean_sq``."""
+    xf = x.float()
+    return (xf * torch.rsqrt(row_mean_sq(xf) + eps) * g.float()).to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -358,16 +373,70 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, cache: O
     ``einsum``s as ``linear``s over the weights' flat views)."""
     b, s, d = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q = rope(linear(x, p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd), positions,
-             cfg.rope_theta)
-    k = rope(linear(x, p["wk"].reshape(d, kv * hd)).reshape(b, s, kv, hd), positions,
-             cfg.rope_theta)
+    q = linear(x, p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
+    k = linear(x, p["wk"].reshape(d, kv * hd)).reshape(b, s, kv, hd)
     v = linear(x, p["wv"].reshape(d, kv * hd)).reshape(b, s, kv, hd)
+    if cfg.qk_norm:
+        q, k = qk_head_norm(q, p["q_norm"]), qk_head_norm(k, p["k_norm"])
+    q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
     out = attend(i, q, k, v, cache, offset, paged).reshape(b, s, h * hd)
     return linear(out, p["wo"].reshape(h * hd, d))
 
 
-def mlp_apply(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: silu of the gate in float32, cast to x's dtype, times up,
-    then down."""
-    return linear(silu_mul(linear(x, p["w_gate"]), linear(x, p["w_up"]), x.dtype), p["w_down"])
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The FFN of ``cfg.act``: SwiGLU (silu of the gate in float32, cast to
+    x's dtype, times up), squared ReLU or tanh-form GELU (of up in float32,
+    cast to x's dtype), then down."""
+    if cfg.act == "swiglu":
+        h = silu_mul(linear(x, p["w_gate"]), linear(x, p["w_up"]), x.dtype)
+    elif cfg.act == "squared_relu":
+        r = F.relu(linear(x, p["w_up"]).float())
+        h = (r * r).to(x.dtype)
+    elif cfg.act == "gelu":  # jax.nn.gelu defaults to the tanh form
+        h = F.gelu(linear(x, p["w_up"]).float(), approximate="tanh").to(x.dtype)
+    else:
+        raise ValueError(f"unknown activation {cfg.act!r}")
+    return linear(h, p["w_down"])
+
+
+def topk_gates(logits: torch.Tensor, k: int):
+    """(gates (T, k), expert ids (T, k)): the k largest router logits,
+    largest first and ties to the lower expert id, as ``jax.lax.top_k``
+    orders them (a stable sort: ``torch.topk`` promises no order among
+    equal values), and the softmax over them."""
+    vals, ids = torch.sort(logits, dim=-1, descending=True, stable=True)
+    return torch.softmax(vals[..., :k], dim=-1), ids[..., :k]
+
+
+def moe_apply_dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every token through every expert, gated by the softmax of its top-k
+    router logits (the reference's ``moe_apply_dense``): the router's
+    float32 GEMM, the expert products batched over the expert axis in x's
+    dtype, and the float32 gated combine, each over fixed blocks of
+    ``ROW_BLOCK`` token rows (the last zero-padded), so that a row's bits
+    do not depend on the call's row count.  Experts are stacked (E, d, f)
+    and (E, f, d)."""
+    b, s, d = x.shape
+    e = cfg.n_experts
+    wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
+    t = x.reshape(-1, d)
+    outs = []
+    for i in range(0, t.shape[0], ROW_BLOCK):
+        tb = t[i:i + ROW_BLOCK]
+        pad = ROW_BLOCK - tb.shape[0]
+        tb = F.pad(tb, (0, 0, 0, pad)) if pad else tb
+        gates, ids = topk_gates(tb.float() @ p["router"].float(), cfg.top_k)
+        combine = torch.zeros((ROW_BLOCK, e), dtype=torch.float32, device=x.device)
+        combine.scatter_(1, ids, gates)
+        h = silu_mul(torch.matmul(tb, wg), torch.matmul(tb, wu), x.dtype)  # (E, T, f)
+        y = torch.matmul(h, wd).float().permute(1, 2, 0)  # (T, d, E)
+        outs.append(torch.matmul(y, combine[:, :, None])[:ROW_BLOCK - pad, :, 0])
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
+    return out.to(x.dtype).reshape(b, s, d)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The MoE block.  The reference takes its all-to-all expert-parallel
+    path only over a device mesh; the port runs one device, so this is the
+    dense combine whatever ``cfg.moe_impl`` says."""
+    return moe_apply_dense(p, x, cfg)

@@ -149,8 +149,10 @@ __all__ = [
 ]
 
 
-# the forward of each serving mode: the W4A8 target, the BVQ draft, and
-# either side of the dense bf16 pair (launch/serve.build_pair(quantize=False))
+# the forward of each serving mode: the W4A8 target, the BVQ draft (dense
+# SwiGLU blocks, qk-norm included), and a model served in its own dtype, of
+# any attention family (dense, VLM, MoE: launch/serve.build_arch_pair and
+# build_pair with quantize=False)
 _FORWARDS = {"w4a8": qlm.apply_quantized_lm, "bvq": qlm.apply_bvq_lm, "bf16": lm.apply_lm}
 
 
@@ -169,7 +171,7 @@ def resolve_device(device) -> torch.device:
 class ServingModel:
     cfg: ModelConfig
     params: Any
-    mode: str = "w4a8"  # w4a8 (target) | bvq (draft) | bf16 (dense pair)
+    mode: str = "w4a8"  # w4a8 (target) | bvq (draft) | bf16 (dense, VLM or MoE)
     s_max: int = 512
     device: Any = "cuda"
 
@@ -205,6 +207,8 @@ def make_interface(model: ServingModel) -> LMInterface:
 
 
 def _wdos_costs(mcfg: ModelConfig) -> Tuple[float, float]:
+    # the reference's model of a layer's weight bytes (12 d^2, MHA SwiGLU),
+    # kept as it is for every family so the modelled WDOS overlap matches it
     load = 12.0 * mcfg.d_model * mcfg.d_model * 1e-6  # ~per-layer weight bytes
     return load, 0.25 * load
 

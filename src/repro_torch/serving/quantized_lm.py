@@ -11,8 +11,17 @@ the head included, is an int4-weight / dynamic int8-activation GEMM
 BVQ (the draft): every linear but the head is decoded from per-block
 codebooks on the fly (``ops.bvq_linear``, the BVQ kernel).
 
-Both forwards take a paged pool (the engine's steps), a dense cache
-(prefill) or no cache, and loop over a list of per-layer parameter dicts.
+Both serve the dense family's SwiGLU blocks, GQA and Qwen3's qk-norm (the
+norm weights ride along as ``qk_extra``); like the reference, which reads
+``w_gate`` unconditionally, they take no two-matrix MLP (raised here as
+``NotImplementedError``).  Both take a paged pool (the engine's steps), a
+dense cache (prefill) or no cache, and loop over a list of per-layer
+parameter dicts.
+
+W4A8 MoE (the reference's single-device branch): attention and the head
+through the W4A8 kernel, every expert packed int4 and dequantized per
+layer for the dense combine (``layers.moe_apply_dense``), the router kept
+f32; a dense cache or none, as in the reference.
 """
 from __future__ import annotations
 
@@ -39,6 +48,10 @@ __all__ = [
     "bvq_compress_lm",
     "bvq_compress_layer",
     "apply_bvq_lm",
+    "quantize_moe_lm",
+    "quantize_moe_layer",
+    "apply_quantized_moe_lm",
+    "fold_expert_split",
     "params_from_numpy",
 ]
 
@@ -75,8 +88,24 @@ def _quant_pack(w: torch.Tensor) -> Params:
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.family not in (Family.DENSE, Family.VLM) or cfg.qk_norm or cfg.act != "swiglu":
-        raise NotImplementedError(f"quantized serving path: dense SwiGLU only, not {cfg.name}")
+    if cfg.family not in (Family.DENSE, Family.VLM):
+        raise NotImplementedError(f"the W4A8 and BVQ forwards serve the dense family, not "
+                                  f"{cfg.name} ({cfg.family.value})")
+    if cfg.act != "swiglu":
+        raise NotImplementedError(f"the W4A8 and BVQ forwards serve SwiGLU blocks, not "
+                                  f"{cfg.name}'s {cfg.act} MLP")
+
+
+def _qk_extra(attn: Params) -> Params:
+    """Qwen3's per-head norm weights, carried beside the packed linears."""
+    return {k: attn[k] for k in ("q_norm", "k_norm") if k in attn}
+
+
+def _qk_norm(q_: torch.Tensor, k_: torch.Tensor, p: Params, cfg: ModelConfig):
+    if cfg.qk_norm:
+        extra = p["qk_extra"]
+        return L.qk_head_norm(q_, extra["q_norm"]), L.qk_head_norm(k_, extra["k_norm"])
+    return q_, k_
 
 
 def quantize_layer(lp: Params, cfg: ModelConfig) -> Params:
@@ -101,6 +130,7 @@ def quantize_layer(lp: Params, cfg: ModelConfig) -> Params:
         "w_gate": _quant_pack(_rot_in(wg_, r1)),
         "w_up": _quant_pack(_rot_in(wu_, r1)),
         "w_down": _quant_pack(wd_),
+        "qk_extra": _qk_extra(lp["attn"]),
     }
 
 
@@ -125,6 +155,7 @@ def bvq_compress_layer(lp: Params, cfg: ModelConfig, bcfg: bvq_mod.BVQConfig,
                        gen: torch.Generator) -> Params:
     """Compress one block's seven linears; codebooks are dequantized here,
     once, instead of inside every matmul."""
+    _check_dense(cfg)
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
 
     def one(w):
@@ -141,6 +172,7 @@ def bvq_compress_layer(lp: Params, cfg: ModelConfig, bcfg: bvq_mod.BVQConfig,
         "w_gate": one(lp["mlp"]["w_gate"]),
         "w_up": one(lp["mlp"]["w_up"]),
         "w_down": one(lp["mlp"]["w_down"]),
+        "qk_extra": _qk_extra(lp["attn"]),
     }
 
 
@@ -174,6 +206,23 @@ def _bvq(x: torch.Tensor, bw: Params) -> torch.Tensor:
     return ops.bvq_linear(x, bw["cb"], bw["idx"])
 
 
+def _w4a8_attention(p: Params, z: torch.Tensor, cfg: ModelConfig, i: int, cache, offset,
+                    positions, paged) -> torch.Tensor:
+    """Layer i's W4A8 attention block on its normed input ``z``: q/k/v
+    through the W4A8 kernel, qk-norm where the config asks for it, rope,
+    attention over the cache, and the output projection ``wo``."""
+    b, s, _ = z.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
+    q_ = _qlinear(z, p["wq"]).reshape(b, s, h, hd)
+    k_ = _qlinear(z, p["wk"]).reshape(b, s, kv, hd)
+    v_ = _qlinear(z, p["wv"]).reshape(b, s, kv, hd)
+    q_, k_ = _qk_norm(q_, k_, p, cfg)
+    q_ = L.rope(q_, positions, cfg.rope_theta)
+    k_ = L.rope(k_, positions, cfg.rope_theta)
+    att = L.attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
+    return _qlinear(att, p["wo"])
+
+
 def apply_quantized_lm(
     qparams: Params,
     cfg: ModelConfig,
@@ -183,20 +232,13 @@ def apply_quantized_lm(
     """W4A8 serving forward (dense family), logits in the model dtype.
     Cache tensors are written in place; the returned cache dict carries the
     advanced length."""
+    _check_dense(cfg)
     b, s = tokens.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     r2 = rot.plan_rotation(cfg.d_ff)
     offset, positions, paged = L.forward_cache_ctx(cache, b, s)
     x = qparams["embed"][tokens.long()].to(cfg.tdtype)
     for i, p in enumerate(qparams["layers"]):
-        z = _norm_only(x)
-        q_ = _qlinear(z, p["wq"]).reshape(b, s, h, hd)
-        k_ = _qlinear(z, p["wk"]).reshape(b, s, kv, hd)
-        v_ = _qlinear(z, p["wv"]).reshape(b, s, kv, hd)
-        q_ = L.rope(q_, positions, cfg.rope_theta)
-        k_ = L.rope(k_, positions, cfg.rope_theta)
-        att = L.attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
-        x = x + _qlinear(att, p["wo"])
+        x = x + _w4a8_attention(p, _norm_only(x), cfg, i, cache, offset, positions, paged)
         z2 = _norm_only(x)
         g_ = _qlinear(z2, p["w_gate"])
         u_ = _qlinear(z2, p["w_up"])
@@ -212,6 +254,7 @@ def apply_bvq_lm(
     cache: Optional[Params] = None,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """BVQ draft forward: weights decoded from codebooks on the fly."""
+    _check_dense(cfg)
     b, s = tokens.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
     offset, positions, paged = L.forward_cache_ctx(cache, b, s)
@@ -221,6 +264,7 @@ def apply_bvq_lm(
         q_ = _bvq(z, p["wq"]).reshape(b, s, h, hd).to(x.dtype)
         k_ = _bvq(z, p["wk"]).reshape(b, s, kv, hd).to(x.dtype)
         v_ = _bvq(z, p["wv"]).reshape(b, s, kv, hd).to(x.dtype)
+        q_, k_ = _qk_norm(q_, k_, p, cfg)
         q_ = L.rope(q_, positions, cfg.rope_theta)
         k_ = L.rope(k_, positions, cfg.rope_theta)
         att = L.attend(i, q_, k_, v_, cache, offset, paged).reshape(b, s, h * hd)
@@ -231,6 +275,90 @@ def apply_bvq_lm(
         x = x + _bvq(L.silu_mul(g_, u_, x.dtype), p["w_down"]).to(x.dtype)
     x = L.rmsnorm(qparams["final_norm"], x)
     return x @ qparams["head"].to(x.dtype), L.advance_cache(cache, offset, s)
+
+
+# ---------------------------------------------------------------------------
+# W4A8 MoE (the reference's single-device branch)
+# ---------------------------------------------------------------------------
+
+
+def _quant_pack_experts(w: torch.Tensor) -> Params:
+    """(E, K, F) -> int4 packed along K, (E, K/2, F), in the reference's
+    layout (no kernel reads it: the forward dequantizes), + per-(expert,
+    output) scales (E, 1, F)."""
+    wq, sw = q.quantize_weight_int(w.float(), bits=4, axis=1)
+    return {"packed": q.pack_int4(wq, axis=1), "sw": sw}
+
+
+def _dequant_experts(qw: Params, dtype: torch.dtype) -> torch.Tensor:
+    return (q.unpack_int4(qw["packed"], axis=1).float() * qw["sw"]).to(dtype)
+
+
+def _check_moe(cfg: ModelConfig) -> None:
+    if cfg.family is not Family.MOE:
+        raise NotImplementedError(f"the W4A8 MoE forward serves the MoE family, not {cfg.name}")
+
+
+def quantize_moe_layer(lp: Params, cfg: ModelConfig) -> Params:
+    """One MoE block into the W4A8 form: the attention linears packed for
+    the W4A8 kernel, the experts packed int4 per (expert, output channel),
+    norms and the f32 router as they are.  No rotation folding, as in the
+    reference (a rotated residual would change the router's input)."""
+    _check_moe(cfg)
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    a, m = lp["attn"], lp["moe"]
+    return {
+        "ln1": lp["ln1"],
+        "ln2": lp["ln2"],
+        "wq": _quant_pack(a["wq"].reshape(d, h * hd)),
+        "wk": _quant_pack(a["wk"].reshape(d, kv * hd)),
+        "wv": _quant_pack(a["wv"].reshape(d, kv * hd)),
+        "wo": _quant_pack(a["wo"].reshape(h * hd, d)),
+        "router": m["router"],
+        "w_gate": _quant_pack_experts(m["w_gate"]),
+        "w_up": _quant_pack_experts(m["w_up"]),
+        "w_down": _quant_pack_experts(m["w_down"]),
+    }
+
+
+def quantize_moe_lm(params: Params, cfg: ModelConfig) -> Params:
+    """MoE params -> the W4A8 MoE serving form (the reference's
+    ``quantize_moe_lm``): embedding and final norm as they are, the head
+    packed, every layer through ``quantize_moe_layer``."""
+    return {
+        "embed": params["embed"]["tok"],
+        "head": _quant_pack(params["embed"]["head"].float()),
+        "final_norm": params["final_norm"],
+        "layers": [quantize_moe_layer(lp, cfg) for lp in params["layers"]],
+    }
+
+
+def apply_quantized_moe_lm(
+    qparams: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,
+    cache: Optional[Params] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """W4A8 MoE forward over a dense cache or none (the reference's
+    ``apply_quantized_moe_lm`` without a mesh): W4A8 attention linears,
+    the experts dequantized per layer into the dense combine, the head
+    through the W4A8 kernel; logits in the model dtype."""
+    _check_moe(cfg)
+    if cache is not None and "page_table" in cache:
+        raise NotImplementedError("the W4A8 MoE forward takes a dense cache, as the reference's")
+    b, s = tokens.shape
+    offset, positions, paged = L.forward_cache_ctx(cache, b, s)
+    x = qparams["embed"][tokens.long()].to(cfg.tdtype)
+    for i, p in enumerate(qparams["layers"]):
+        x = x + _w4a8_attention(p, L.rmsnorm(p["ln1"], x), cfg, i, cache, offset, positions,
+                                paged)
+        experts = {"router": p["router"]}
+        for name in ("w_gate", "w_up", "w_down"):
+            experts[name] = _dequant_experts(p[name], x.dtype)
+        x = x + L.moe_apply_dense(experts, L.rmsnorm(p["ln2"], x), cfg)
+        del experts
+    logits = _qlinear(L.rmsnorm(qparams["final_norm"], x), qparams["head"])
+    return logits, L.advance_cache(cache, offset, s)
 
 
 # ---------------------------------------------------------------------------
@@ -253,47 +381,74 @@ def _layer(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def fold_expert_split(moe: Params, n_experts: int) -> Params:
+    """The reference's (E * split, d, f / split) / (E * split, f / split, d)
+    expert stacks, made when experts are fewer than the model axis, folded
+    into the port's (E, d, f) / (E, f, d) (numpy arrays; split = 1 leaves
+    them as they are)."""
+    out = dict(moe)
+    es, d, fs = np.shape(moe["w_gate"])
+    split = es // n_experts
+    for name in ("w_gate", "w_up"):
+        w = np.asarray(moe[name]).reshape(n_experts, split, d, fs)
+        out[name] = w.transpose(0, 2, 1, 3).reshape(n_experts, d, split * fs)
+    out["w_down"] = np.asarray(moe["w_down"]).reshape(n_experts, split * fs, d)
+    return out
+
+
 def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Params:
     """The reference's parameter tree, as nested dicts of numpy arrays,
     -> the port's params on ``device``.
 
-    ``mode`` names the tree: "bf16" (``lm.init_lm``), "w4a8"
+    ``mode`` names the tree: "bf16" (``lm.init_lm``: dense, two-matrix or
+    MoE blocks, split expert stacks folded by ``fold_expert_split``,
+    qk-norm weights, padded vocabularies), "w4a8"
     (``quantize_dense_lm``; the packed weights are reordered for the W4A8
-    kernel, ``w4a8_matmul.prepack``) or "bvq" (``bvq_compress_lm``, each BVQWeight
-    given as its fields ``codebooks``, ``scales``, ``indices``, ``shape``,
-    ``vec_dim``).  Layer-stacked arrays (leading axis n_layers) are split
-    into the port's per-layer list; float weights take the model dtype."""
+    kernel, ``w4a8_matmul.prepack``), "bvq" (``bvq_compress_lm``, each
+    BVQWeight given as its fields ``codebooks``, ``scales``, ``indices``,
+    ``shape``, ``vec_dim``) or "w4a8_moe" (``quantize_moe_lm``: attention
+    and head prepacked, experts kept as packed (E, K/2, F) + (E, 1, F)
+    scales).  Layer-stacked arrays (leading axis n_layers) are split into
+    the port's per-layer list; float weights take the model dtype, the MoE
+    router and every scale float32."""
     dt = cfg.tdtype
     n = cfg.n_layers
+    layers = tree["layers"]
 
     def fp(a):
         return _tensor(a, device, dt)
 
+    def f32(a):
+        return _tensor(a, device, torch.float32)
+
+    def qw(d):
+        return {"packed": prepack(_tensor(d["packed"], device, torch.int8)), "sw": f32(d["sw"])}
+
+    def qk_extra(i):
+        return {k: fp(a) for k, a in _layer(layers.get("qk_extra", {}), i).items()}
+
     if mode == "bf16":
-        layers = tree["layers"]
+        def group(name, arrs):
+            if name == "moe":
+                arrs = fold_expert_split(arrs, cfg.n_experts)
+                return {k: (f32 if k == "router" else fp)(a) for k, a in arrs.items()}
+            return {k: fp(a) for k, a in arrs.items()}
+
         return {
             "embed": {"tok": fp(tree["embed"]["tok"]), "head": fp(tree["embed"]["head"])},
             "final_norm": {"g": fp(tree["final_norm"]["g"])},
-            "layers": [
-                {
-                    grp: {name: fp(arr) for name, arr in _layer(layers[grp], i).items()}
-                    for grp in ("ln1", "attn", "ln2", "mlp")
-                }
-                for i in range(n)
-            ],
+            "layers": [{grp: group(grp, arrs) for grp, arrs in _layer(layers, i).items()}
+                       for i in range(n)],
         }
 
+    names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
     if mode == "w4a8":
-        def qw(d):
-            return {"packed": prepack(_tensor(d["packed"], device, torch.int8)),
-                    "sw": _tensor(d["sw"], device, torch.float32)}
-
-        names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
         return {
             "embed": fp(tree["embed"]),
             "head": qw(tree["head"]),
             "layers": [
-                {name: qw(_layer(tree["layers"][name], i)) for name in names}
+                {**{name: qw(_layer(layers[name], i)) for name in names},
+                 "qk_extra": qk_extra(i)}
                 for i in range(n)
             ],
         }
@@ -311,8 +466,6 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Para
             )
             return {"cb": bvq_mod.dequant_codebooks(bwt), "idx": bwt.indices}
 
-        names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
-        layers = tree["layers"]
         return {
             "embed": fp(tree["embed"]),
             "head": fp(tree["head"]),
@@ -322,8 +475,27 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Para
                     "ln1": {"g": fp(np.asarray(layers["ln1"]["g"])[i])},
                     "ln2": {"g": fp(np.asarray(layers["ln2"]["g"])[i])},
                     **{name: bw(layers[name], i) for name in names},
+                    "qk_extra": qk_extra(i),
                 }
                 for i in range(n)
             ],
+        }
+
+    if mode == "w4a8_moe":
+        def experts(d):
+            return {"packed": _tensor(d["packed"], device, torch.int8), "sw": f32(d["sw"])}
+
+        def moe_layer(i):
+            lp = _layer(layers, i)
+            return {"ln1": {"g": fp(lp["ln1"]["g"])}, "ln2": {"g": fp(lp["ln2"]["g"])},
+                    **{name: qw(lp[name]) for name in ("wq", "wk", "wv", "wo")},
+                    "router": f32(lp["router"]),
+                    **{name: experts(lp[name]) for name in ("w_gate", "w_up", "w_down")}}
+
+        return {
+            "embed": fp(tree["embed"]),
+            "head": qw(tree["head"]),
+            "final_norm": {"g": fp(tree["final_norm"]["g"])},
+            "layers": [moe_layer(i) for i in range(n)],
         }
     raise ValueError(f"params_from_numpy: unknown mode {mode!r}")
