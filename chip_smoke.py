@@ -175,13 +175,32 @@ Phases, in order (any failure exits non-zero before the final line):
    common prefix, first select different experts only at router
    near-ties (k-th against (k+1)-th router logit within ROUTER_NEAR_TIE
    at that layer and token, in both runs).
+25. Train path: ``launch.train.Trainer`` on mamba2-1.3b at full width and
+   depth (48 layers, d 2048, bf16, float32 moments, remat), batch 4 x 512
+   tokens, 8 steps with a checkpoint at step 4: losses and grad norms
+   finite, parameters moved; step ms, tokens/s, peak GB and the model
+   FLOPs over the bf16 peak; a fresh Trainer restores step 4 and its
+   steps 5-7 give the first run's losses and grad norms bit for bit.
+26. Draft train path: the paper's draft at LLaMA-68M widths trained 200
+   steps on the synthetic stream (batch 32 x 256): the last loss below
+   LOSS_DROP times the first; ms per step.
+27. Elastic path: examples/train_and_recover.py's three phases through the
+   port on mamba2-smoke (loss falls, a restart continues, an
+   ElasticTrainer survives a lost node).
+28. SSM families path: mamba2-1.3b, zamba2-7b and whisper-large-v3 at full
+   width and depth, 2 x 16 greedy tokens through prefill and cached
+   decode, in bf16 and then float32 (the same weights cast): float32
+   tokens equal a full re-forward's argmax except at a near-tie; bf16
+   decode logits within BF16_DECODE_FACTOR times the bf16 re-forward's
+   distance from the float32 re-forward; card against CPU at smoke size.  Phases 25-28
+   print their seconds.
 
 Each path prints its tokens/s, rounds, target forwards per emitted token,
 device-to-host copies per round and, on a WDOS engine, its fused-slot
 summary; ``--profile`` adds a torch.profiler breakdown (device busy share,
 kernels, launches and copies, host time, launches per target forward) of
 three rounds of the main, tree, sampled, sampled tree, WDOS, WDOS tree,
-dense, Qwen3, MoE and Nemotron paths.
+dense, Qwen3, MoE and Nemotron paths, and one step of each training path.
 
 The last two lines are the kernels summary (JSON) and the result line
 ``{"ok": true, "device": {...}}``.  Weights are random, made from SEED.
@@ -2706,6 +2725,408 @@ def phase_families_card_vs_cpu(dev):
         raise AssertionError(f"card and CPU tokens differ beyond a near-tie: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 25-28: training, and the recurrent and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+LOSS_DROP = 0.8  # the draft's last loss must be below this times its first
+BF16_DECODE_FACTOR = 2.0  # bf16 decode's distance from the float32 logits over
+# the bf16 re-forward's: both round one float32 function to bf16 in other
+# orders (measured 1.00-1.20 on the card at full width); a decode that loses
+# its state or a cache entry lands far outside, and the float32 gate holds
+# the decode to its re-forward's argmax
+
+
+def _train_steps(tr, n, dev, save_at=None):
+    """``n`` steps of a Trainer, each timed on the host clock between device
+    synchronizations (``float`` of the loss syncs, as ``Trainer.run``'s
+    does); a checkpoint of ``save_at`` is queued as ``run`` queues one.
+    Returns one dict per step."""
+    rows = []
+    for _ in range(n):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        m = tr.train_step()
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        rows.append({"step": tr.step, "loss": loss, "grad_norm": gnorm,
+                     "ms": (time.perf_counter() - t0) * 1e3})
+        if tr.step == save_at:
+            tr.ckpt.save(tr.step, tr.checkpoint_tree())
+        tr.step += 1
+    return rows
+
+
+def _profile_step(path, tr, dev):
+    """One more Trainer step under torch.profiler (CPU and CUDA
+    activities): its wall ms, summed device-kernel ms (their ratio is the
+    device's busy share, a lower bound: the profiler adds host overhead),
+    kernel launches, host ms, and the top aten ops by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(tr.train_step()["loss"])
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    tr.step += 1
+    events = prof.key_averages()
+    device_ms = sum(e.self_device_time_total for e in events
+                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    ops = sorted((e for e in events if e.key.startswith("aten::")),
+                 key=lambda e: e.self_device_time_total, reverse=True)[:10]
+    emit(phase="profile", path=path, wall_ms=wall_ms, device_ms=device_ms,
+         device_busy_share=device_ms / wall_ms,
+         launches=sum(e.count for e in events if e.key == "cudaLaunchKernel"),
+         host_ms=sum(e.self_cpu_time_total for e in events) / 1e3,
+         top_device_ops=[[e.key, e.self_device_time_total / 1e3, e.count] for e in ops])
+
+
+def phase_train_path(dev, profile=False):
+    """The Trainer on mamba2-1.3b at full width and depth (48 layers, d
+    2048, bf16, float32 moments, remat), batch 4 x 512 tokens, 8 steps, a
+    checkpoint at step 4: losses and grad norms finite, parameters moved;
+    step ms (median of steps 1-7), tokens/s, peak GB, and the step's model
+    FLOPs (6 N T; 8 N T with remat's second forward) over the bf16 peak.
+    Then a fresh Trainer restores step 4 and runs steps 5-7: their losses
+    and grad norms equal the first run's bit for bit (one card, the same
+    ops; step 5 reads the restored parameters, steps 6-7 the restored
+    moments and count as well).  ``profile``: one more step under
+    torch.profiler (``_profile_step``)."""
+    import gc
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import param_counts
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.lm import param_count
+
+    cfg, seq, batch, steps, save_at = get_config("mamba2-1.3b"), 512, 4, 8, 4
+    tmp = tempfile.mkdtemp(prefix="train_path_")
+    try:
+        free = shutil.disk_usage(tmp).free
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, seq_len=seq, global_batch=batch, ckpt_dir=tmp, device=dev)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        n_params = param_count(tr.params)
+        probe = {"head": tr.params["embed"]["head"][:256, :256].clone(),
+                 "w_in": tr.params["layers"][0]["mamba"]["w_in"][:256, :256].clone()}
+        torch.cuda.reset_peak_memory_stats(dev)
+        rows = _train_steps(tr, steps, dev, save_at)
+        peak = torch.cuda.max_memory_allocated(dev)
+        t0 = time.perf_counter()
+        tr.ckpt.wait()
+        ckpt_wait_s = time.perf_counter() - t0
+        moved = {"head": bool((tr.params["embed"]["head"][:256, :256] != probe["head"]).any()),
+                 "w_in": bool((tr.params["layers"][0]["mamba"]["w_in"][:256, :256]
+                               != probe["w_in"]).any())}
+        ckpt_bytes = sum(os.path.getsize(os.path.join(r, f))
+                         for r, _, fs in os.walk(tmp) for f in fs)
+        del tr, probe
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        tr2 = Trainer(cfg, seq_len=seq, global_batch=batch, ckpt_dir=tmp, device=dev)
+        restored = tr2.restore()
+        torch.cuda.synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        again = _train_steps(tr2, steps - save_at - 1, dev) if restored else []
+        if profile:
+            _profile_step("train_path", tr2, dev)
+        del tr2
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))
+    tokens = batch * seq
+    model_flops = 6 * param_counts(cfg)["active"] * tokens
+    restored_equal = [a["loss"] == b["loss"] and a["grad_norm"] == b["grad_norm"]
+                      for a, b in zip(again, rows[save_at + 1:])]
+    emit(phase="train_path", config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+         dtype=cfg.dtype, moments=cfg.optim_dtype, remat=cfg.remat, parameters=n_params,
+         batch=batch, seq_len=seq, steps=rows, build_s=build_s, step_ms=step_ms,
+         tokens_per_s=tokens / (step_ms / 1e3), peak_gb=peak / 1e9,
+         model_flops_per_step=model_flops, remat_flops_per_step=model_flops * 8 / 6,
+         model_flops_share_of_bf16_peak=model_flops / (step_ms / 1e3) / PEAK_OPS["bf16"],
+         params_moved=moved, checkpoint_step=save_at, checkpoint_bytes=ckpt_bytes,
+         disk_free_bytes=free, checkpoint_wait_s=ckpt_wait_s, restore_s=restore_s,
+         restored_steps=again, restored_bitwise_equal=restored_equal)
+    bad = [r for r in rows if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]))]
+    if bad:
+        raise AssertionError(f"train_path: non-finite steps {bad}")
+    if not all(moved.values()):
+        raise AssertionError(f"train_path: parameters did not move: {moved}")
+    if not restored or len(restored_equal) != steps - save_at - 1 or not all(restored_equal):
+        raise AssertionError(f"train_path: restored steps {again} against "
+                             f"{rows[save_at + 1:]} (bitwise)")
+
+
+def phase_draft_train_path(dev, profile=False):
+    """The paper's draft at LLaMA-68M widths (``configs/paper_pair.DLM``:
+    2 layers, d 768, vocab 32,000, bf16) trained 200 steps on the synthetic
+    stream, batch 32 x 256: the last loss below LOSS_DROP times the first
+    (as examples/train_and_recover.py asserts); ms per step.
+    ``profile``: one more step under torch.profiler."""
+    from repro_torch.configs.paper_pair import DLM
+    from repro_torch.launch.train import Trainer
+
+    t0 = time.perf_counter()
+    tr = Trainer(DLM, seq_len=256, global_batch=32, device=dev)
+    rows = _train_steps(tr, 200, dev)
+    wall = time.perf_counter() - t0
+    first, last = rows[0]["loss"], rows[-1]["loss"]
+    step_ms = float(np.median([r["ms"] for r in rows[1:]]))
+    emit(phase="draft_train_path", config=DLM.name, batch=32, seq_len=256, steps=len(rows),
+         first_loss=first, last_loss=last, ratio=last / first,
+         losses_every_25=[r["loss"] for r in rows[::25]], step_ms=step_ms,
+         tokens_per_s=32 * 256 / (step_ms / 1e3), wall_s=wall)
+    if not last < LOSS_DROP * first:
+        raise AssertionError(f"draft_train_path: loss {first} -> {last} did not fall below "
+                             f"{LOSS_DROP}x")
+    if profile:
+        _profile_step("draft_train_path", tr, dev)
+    del tr
+    torch.cuda.empty_cache()
+
+
+def phase_elastic_path(dev):
+    """examples/train_and_recover.py's three phases through the port on the
+    card, mamba2-smoke: 60 steps with a checkpoint every 20 (the loss must
+    fall below 0.8x), a fresh Trainer restored from the latest checkpoint
+    (its first loss below 0.9x the first run's first), and an
+    ElasticTrainer over 4 hosts with a node lost at tick 25 (a restart on a
+    smaller fleet, the last step 39)."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.launch.train import Trainer
+    from repro_torch.runtime import ElasticTrainer, FaultToleranceConfig
+
+    cfg = get_smoke("mamba2-1.3b")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        tr = Trainer(cfg, seq_len=64, global_batch=8, ckpt_dir=d, device=dev)
+        hist = tr.run(steps=60, ckpt_every=20, log_every=10**9)
+        first, last = hist[0]["loss"], hist[-1]["loss"]
+        tr2 = Trainer(cfg, seq_len=64, global_batch=8, ckpt_dir=d, device=dev)
+        restored = tr2.restore()
+        hist2 = tr2.run(steps=10, ckpt_every=100, log_every=10**9) if restored else [{}]
+    failures = iter([None] * 25 + [2] + [None] * 100)
+    with tempfile.TemporaryDirectory() as d2:
+        def build(n_hosts, restore):
+            t = Trainer(cfg, seq_len=64, global_batch=8, device=dev)
+            if restore is not None:
+                t.load_state(restore[1])
+
+            def step_fn(state, step):
+                t.step = step
+                return state, {"loss": t.run(steps=1, ckpt_every=10**9,
+                                             log_every=10**9)[0]["loss"]}
+
+            return {"t": t}, step_fn
+
+        et = ElasticTrainer(FaultToleranceConfig(ckpt_dir=d2, ckpt_every=10), n_hosts=4,
+                            build_fn=build, state_to_tree=lambda s: s["t"].checkpoint_tree(),
+                            failure_source=lambda: next(failures), min_hosts=2, device=dev)
+        hist3 = et.run(40)
+        et.ckpt.close()
+    events = [h["event"] for h in hist3]
+    steps = [h["step"] for h in hist3 if h["event"] == "step"]
+    emit(phase="elastic_path", config=cfg.name, first_loss=first, last_loss=last,
+         restored=restored, restart_step=tr2.step - 10 if restored else None,
+         restarted_first_loss=hist2[0].get("loss"), elastic_steps=events.count("step"),
+         restarts=events.count("restart"), fleet=et.n_hosts,
+         restart_events=[h for h in hist3 if h["event"] == "restart"],
+         wall_s=time.perf_counter() - t0)
+    if not last < 0.8 * first:
+        raise AssertionError(f"elastic_path: loss {first} -> {last} did not fall")
+    if not restored or not hist2[0]["loss"] < 0.9 * first:
+        raise AssertionError(f"elastic_path: the restart did not continue: {hist2[0]}")
+    if "restart" not in events or steps[-1] != 39:
+        raise AssertionError(f"elastic_path: events {events}")
+
+
+def _greedy_family(params, cfg, prompts, frames, n, dev):
+    """Greedy decode of ``n`` tokens through a prefill of prompts (B, P) and
+    n - 1 cached one-token steps on ``dev`` (the card, or the CPU), then
+    one full re-forward over the prompt and the tokens.  Returns a dict:
+    ``tokens`` (B, n), ``step_logits`` (B, n, V) float32 (the logits each
+    token was chosen from), ``seq`` (B, P + n - 1) the re-forward's input,
+    ``full`` (B, n, V) float32 the re-forward's logits at those positions,
+    ``prefill_ms`` and ``step_ms`` (ms per decode step)."""
+    from repro_torch.models import lm
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    b, p = prompts.shape
+    kw = {"frames": frames} if frames is not None else {}
+    with torch.no_grad():
+        sync()
+        t0 = time.perf_counter()
+        cache = lm.init_cache(cfg, b, p + n + 1, dev)
+        logits, cache = lm.apply_lm(params, cfg, prompts, cache=cache, **kw)
+        steps = [logits[:, -1].float()]
+        out = [torch.argmax(logits[:, -1], dim=-1).to(torch.int32)]
+        sync()
+        t1 = time.perf_counter()
+        for _ in range(n - 1):
+            logits, cache = lm.apply_lm(params, cfg, out[-1][:, None], cache=cache)
+            steps.append(logits[:, -1].float())
+            out.append(torch.argmax(logits[:, -1], dim=-1).to(torch.int32))
+        sync()
+        t2 = time.perf_counter()
+        toks = torch.stack(out, 1)
+        seq = torch.cat([prompts, toks[:, :-1]], 1)
+        full = _reforward(params, cfg, seq, frames, p)
+    return {"tokens": toks, "step_logits": torch.stack(steps, 1), "seq": seq, "full": full,
+            "prefill_ms": (t1 - t0) * 1e3, "step_ms": (t2 - t1) * 1e3 / max(n - 1, 1)}
+
+
+def _reforward(params, cfg, seq, frames, p):
+    """The full forward's float32 logits over seq (B, P + n - 1) at the n
+    positions from P - 1 on (those greedy decode chose its tokens at)."""
+    from repro_torch.models import lm
+
+    kw = {"frames": frames} if frames is not None else {}
+    with torch.no_grad():
+        return lm.apply_lm(params, cfg, seq, **kw)[0][:, p - 1:].float()
+
+
+def _family_rows(run):
+    """Each row's positions where the decode differs from the re-forward's
+    argmax, with the re-forward's top-2 margin; a row passes when every
+    such position is a near-tie."""
+    want = torch.argmax(run["full"], -1).tolist()
+    top2 = torch.topk(run["full"], 2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).tolist()
+    rows = []
+    for r, (a, b, m) in enumerate(zip(run["tokens"].tolist(), want, margins)):
+        diff = [{"position": i, "top2_margin": m[i]} for i in range(len(a)) if a[i] != b[i]]
+        rows.append({"row": r, "equal": not diff, "differences": diff,
+                     "near_tie": all(d["top2_margin"] <= NEAR_TIE for d in diff)})
+    return rows
+
+
+def _row_max_abs(a, b, vocab):
+    """Per row of (B, n, V) logits: the largest |a - b| over the first
+    ``vocab`` (a padded vocabulary's -1e9 logits round apart in bf16)."""
+    return (a[..., :vocab] - b[..., :vocab]).abs().flatten(1).max(dim=1).values.tolist()
+
+
+def phase_ssm_families_path(dev):
+    """mamba2-1.3b, zamba2-7b (81 layers, 13 applications of the one shared
+    attention block) and whisper-large-v3 (1,500 frames) at full width and
+    depth, each built one layer at a time on the card in bf16 (the
+    configs' dtype) and then cast to float32: in each dtype 2 x 16 greedy
+    tokens through a 32-token prefill and cached decode, then one full
+    re-forward over the prompt and the tokens.
+
+    float32: each token equals the re-forward's argmax except at a
+    near-tie (top-2 margin <= NEAR_TIE), where the two differ only in
+    summation order.  bf16: a decode step and a prefill sum in another
+    order and bf16 rounds the two apart, so each row's decode logits are
+    held to the float32 re-forward of the same weights over the same
+    tokens: their largest difference must stay within BF16_DECODE_FACTOR
+    times the bf16 re-forward's own.  Printed beside it: the decode
+    against the bf16 re-forward and, in the SSM families (whose scan is
+    float32 in both paths), the bf16 re-forward at another ``ssm_chunk``,
+    an exact change of summation order, against the first.  Then the three smoke configs, built
+    on the CPU from SEED and copied: card tokens equal CPU tokens under
+    the near-tie rule (at the first position a row differs, the top-2
+    margin of the CPU run's re-forward)."""
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models import lm
+    from repro_torch.models.common import Family
+
+    archs = ("mamba2-1.3b", "zamba2-7b", "whisper-large-v3")
+    bad = []
+    for arch in archs:
+        cfg = get_config(arch)
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        t0 = time.perf_counter()
+        params = lm.init_lm(torch.Generator(device=dev).manual_seed(SEED), cfg, dev)
+        torch.cuda.synchronize(dev)
+        build_s = time.perf_counter() - t0
+        prompts = torch.as_tensor(np.random.RandomState(SEED).randint(0, cfg.vocab, (2, 32)),
+                                  dtype=torch.int32, device=dev)
+        frames = None
+        if cfg.family is Family.AUDIO:
+            frames = torch.randn((2, cfg.n_audio_frames, cfg.d_model),
+                                 generator=torch.Generator(device=dev).manual_seed(SEED),
+                                 device=dev).to(cfg.tdtype)
+        n_params = lm.param_count(params)
+        runs = {"bfloat16": _greedy_family(params, cfg, prompts, frames, 16, dev)}
+        other_chunk = None
+        if cfg.family in (Family.SSM, Family.HYBRID):
+            other_chunk = min(16, cfg.ssm_chunk // 2)
+            runs["bfloat16"]["full_other_chunk"] = _reforward(
+                params, dataclasses.replace(cfg, ssm_chunk=other_chunk), runs["bfloat16"]["seq"],
+                frames, prompts.shape[1])
+        params = tree_map(lambda t: t.float(), params)
+        frames = None if frames is None else frames.float()
+        full32 = _reforward(params, cfg32, runs["bfloat16"]["seq"], frames, prompts.shape[1])
+        runs["float32"] = _greedy_family(params, cfg32, prompts, frames, 16, dev)
+        for dtype, run in runs.items():
+            rows = _family_rows(run)
+            extra = {}
+            if dtype == "bfloat16":
+                gap = _row_max_abs(run["step_logits"], run["full"], cfg.vocab)
+                noise = _row_max_abs(run["full"], full32, cfg.vocab)
+                extra = {"decode_vs_reforward_max_abs": gap,
+                         "reforward_vs_float32_max_abs": noise,
+                         "decode_vs_float32_max_abs": _row_max_abs(run["step_logits"], full32, cfg.vocab)}
+                if other_chunk is not None:
+                    extra["other_chunk"] = other_chunk
+                    extra["reforward_vs_other_chunk_max_abs"] = _row_max_abs(
+                        run["full_other_chunk"], run["full"], cfg.vocab)
+                bad += [{"config": cfg.name, "row": r, "decode_vs_float32": g,
+                         "reforward_vs_float32": e}
+                        for r, (g, e) in enumerate(zip(extra["decode_vs_float32_max_abs"], noise))
+                        if g > BF16_DECODE_FACTOR * e]
+            else:
+                extra = {"decode_vs_reforward_max_abs": _row_max_abs(
+                    run["step_logits"], run["full"], cfg.vocab)}
+                bad += [dict(r, config=cfg.name) for r in rows if not r["near_tie"]]
+            emit(phase="ssm_families_path", config=cfg.name, family=cfg.family.value,
+                 dtype=dtype, layers=cfg.n_layers, parameters=n_params, build_s=build_s,
+                 prefill_ms=run["prefill_ms"], decode_ms_per_step=run["step_ms"],
+                 decode_tokens_per_s=2 * 1e3 / run["step_ms"],
+                 memory_allocated=torch.cuda.memory_allocated(dev),
+                 equal_to_reforward=f"{sum(r['equal'] for r in rows)}/{len(rows)}", rows=rows,
+                 near_tie=NEAR_TIE, **extra)
+        del params, frames, runs, full32
+        torch.cuda.empty_cache()
+    for arch in archs:
+        cfg = get_smoke(arch)
+        params = lm.init_lm(torch.Generator().manual_seed(SEED), cfg, "cpu")
+        prompts = torch.as_tensor(np.random.RandomState(SEED + 1).randint(0, cfg.vocab, (2, 8)),
+                                  dtype=torch.int32)
+        frames = (torch.randn((2, cfg.n_audio_frames, cfg.d_model),
+                              generator=torch.Generator().manual_seed(SEED))
+                  if cfg.family is Family.AUDIO else None)
+        cpu = _greedy_family(params, cfg, prompts, frames, 16, torch.device("cpu"))
+        card = _greedy_family(tree_map(lambda t: t.to(dev), params), cfg, prompts.to(dev),
+                              None if frames is None else frames.to(dev), 16, dev)["tokens"]
+        top2 = torch.topk(cpu["full"], 2, dim=-1).values
+        margins = (top2[..., 0] - top2[..., 1]).tolist()
+        rows = []
+        for r, (a, b) in enumerate(zip(card.tolist(), cpu["tokens"].tolist())):
+            i = next((j for j in range(len(a)) if a[j] != b[j]), None)
+            rows.append({"row": r, "equal": i is None, "position": i,
+                         "top2_margin": None if i is None else margins[r][i]})
+        emit(phase="ssm_families_card_vs_cpu", config=cfg.name,
+             equal=f"{sum(r['equal'] for r in rows)}/{len(rows)}", rows=rows)
+        bad += [dict(r, config=cfg.name) for r in rows
+                if not r["equal"] and r["top2_margin"] > NEAR_TIE]
+    if bad:
+        raise AssertionError(f"ssm_families_path: decode beyond its tolerance: {bad}")
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -2785,6 +3206,15 @@ def main(argv=None) -> int:
     launches.update(phase_nemotron_path(dev, profile=args.profile))
     phase_card_vs_cpu(dev, SEED)
     phase_families_card_vs_cpu(dev)
+    t_train = time.perf_counter()
+    for phase, kw in ((phase_train_path, {"profile": args.profile}),
+                      (phase_draft_train_path, {"profile": args.profile}),
+                      (phase_elastic_path, {}), (phase_ssm_families_path, {})):
+        t_phase = time.perf_counter()
+        phase(dev, **kw)
+        print(f"chip_smoke: {phase.__name__[6:]} {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    print(f"chip_smoke: training and family phases {time.perf_counter() - t_train:.1f} s")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": [
         {

@@ -1,0 +1,7 @@
+"""Checkpoints (torch counterpart of repro/checkpoint)."""
+from repro_torch.checkpoint.store import (  # noqa: F401
+    AsyncCheckpointer,
+    latest_step,
+    load_checkpoint,
+    save_checkpoint,
+)

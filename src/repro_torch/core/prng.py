@@ -5,6 +5,11 @@ with its defaults (raw ``uint32[2]`` keys, the partitionable counter layout,
 
 Keys are ``np.uint32`` arrays of shape (2,).  ``PRNGKey``, ``split``,
 ``fold_in``, ``random_bits`` and ``uniform`` give JAX's bits exactly.
+``normal`` takes JAX's uniform draw over (-1, 1) and XLA's float32
+inverse-error-function polynomial, its Horner steps as fused
+multiply-adds (as XLA's CPU code runs them); numpy's ``log1p`` may differ
+from XLA's by an ulp, so a value may differ in its last bits (in 1-2% of
+draws, by at most a few ulp).
 ``gumbel`` and ``categorical`` take ``np.log``, which differs from XLA's
 ``log`` by a few ulp on some inputs, so a Gumbel value may differ in its
 last bits and a categorical draw only where the two largest perturbed
@@ -21,7 +26,8 @@ from typing import Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform", "gumbel", "categorical"]
+__all__ = ["PRNGKey", "split", "fold_in", "random_bits", "uniform", "normal", "gumbel",
+           "categorical"]
 
 Shape = Union[int, Sequence[int]]
 
@@ -118,6 +124,37 @@ def uniform(key, shape: Shape = (), minval: float = 0.0, maxval: float = 1.0) ->
     floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1.0)
     scaled = (floats.astype(np.float64) * np.float64(hi - lo) + np.float64(lo)).astype(np.float32)
     return np.maximum(lo, scaled).reshape(shape)
+
+
+# XLA's float32 erf_inv (Giles' polynomial in w = -log1p(-x^2)): the
+# coefficients for w < 5 and for w >= 5, highest degree first
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+               0.00021858087, -0.00125372503, -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+               0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erfinv32(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float32)
+    w = -np.log1p(-x * x)
+    lt = w < np.float32(5.0)
+    w = np.where(lt, w - np.float32(2.5), np.sqrt(np.maximum(w, np.float32(0))) - np.float32(3.0))
+    p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
+    w64 = w.astype(np.float64)
+    for lo, hi in zip(_ERFINV_LT5[1:], _ERFINV_GE5[1:]):
+        c = np.where(lt, np.float32(lo), np.float32(hi))
+        # c + p * w in one rounding: the float32 product is exact in float64
+        p = (c.astype(np.float64) + p.astype(np.float64) * w64).astype(np.float32)
+    out = p * x
+    return np.where(np.abs(x) == np.float32(1.0), x * np.float32(np.inf), out).astype(np.float32)
+
+
+def normal(key, shape: Shape = ()) -> np.ndarray:
+    """float32 standard normal draws, ``sqrt(2) * erfinv(u)`` with u uniform
+    over (-1, 1) (``jax.random.normal``'s float32 path)."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(key, shape, lo, 1.0)
+    return (np.float32(np.sqrt(2)) * _erfinv32(u)).astype(np.float32)
 
 
 def gumbel(key, shape: Shape = ()) -> np.ndarray:

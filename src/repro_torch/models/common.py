@@ -10,6 +10,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.tree import TORCH_DTYPES
+
 __all__ = ["Family", "ModelConfig", "ShapeConfig", "SHAPES"]
 
 
@@ -20,13 +22,6 @@ class Family(str, enum.Enum):
     HYBRID = "hybrid"
     VLM = "vlm"
     AUDIO = "audio"
-
-
-_TORCH_DTYPES = {
-    "bfloat16": torch.bfloat16,
-    "float32": torch.float32,
-    "float16": torch.float16,
-}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,7 +93,7 @@ class ModelConfig:
 
     @property
     def tdtype(self) -> torch.dtype:
-        return _TORCH_DTYPES[self.dtype]
+        return TORCH_DTYPES[self.dtype]
 
     @property
     def is_encdec(self) -> bool:

@@ -25,6 +25,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.models.common import ModelConfig
@@ -37,7 +38,9 @@ __all__ = [
     "silu_mul",
     "kv_store_heads",
     "linear",
+    "attention_init",
     "attention_apply",
+    "mlp_init",
     "mlp_apply",
     "topk_gates",
     "moe_apply_dense",
@@ -49,6 +52,8 @@ __all__ = [
     "kv_quantize",
     "paged_attention_update",
     "forward_cache_ctx",
+    "xent",
+    "remat",
 ]
 
 
@@ -221,7 +226,7 @@ class PagedCache:
     tree_mask: Optional[torch.Tensor] = None  # (B, S, S) f32 window visibility
 
 
-def forward_cache_ctx(cache: Optional[dict], b: int, s: int):
+def forward_cache_ctx(cache: Optional[dict], b: int, s: int, device=None):
     """Shared forward preamble: ``(offset, positions (B, S), paged)``.
 
     A cache carrying ``page_table`` is the paged pool (``{"lengths" (B,),
@@ -232,7 +237,8 @@ def forward_cache_ctx(cache: Optional[dict], b: int, s: int):
     window slot its depth, so positions = offset + win_pos (slot order is
     BFS, RoPE follows depth), and ``tree_mask`` (B, S, S) its ancestor
     relation.  A dense cache (``{"length": int, "attn": {"k": (L, B, S_max,
-    kvh, hd), ...}}``) or None yields an int offset and ``paged=None``.
+    kvh, hd), ...}}``) or None yields an int offset and ``paged=None``; with
+    no cache the positions are made on ``device`` (the tokens' device).
 
     Role mask (fused slots): an optional ``"role_mask"`` (B,) bool selects
     the rows that take part in this forward.  A masked row's length becomes
@@ -253,7 +259,7 @@ def forward_cache_ctx(cache: Optional[dict], b: int, s: int):
         positions = offset[:, None].long() + win_pos.long()
         return offset, positions.expand(b, s), (table, cache.get("tree_mask"))
     offset = int(cache["length"]) if cache is not None else 0
-    device = cache["attn"]["k"].device if cache is not None else None
+    device = cache["attn"]["k"].device if cache is not None else device
     positions = (offset + torch.arange(s, device=device))[None, :].expand(b, s)
     return offset, positions, None
 
@@ -353,7 +359,14 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (..., K) @ w (K, N), the rows in blocks of ``ROW_BLOCK``, the last
     one zero-padded, so that every product has one shape (as in
     ``flash_attention``): a row's bits do not depend on how many rows share
-    the call (a one-token step, a verify window, a prefill)."""
+    the call (a one-token step, a verify window, a prefill).
+
+    Where autograd records through x or w (training), the product is one
+    matmul instead: the weight's gradient is then one GEMM accumulated in
+    float32, not a sum of per-block products in the weight's dtype, and
+    training needs no row invariance."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return x @ w
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
     outs = []
@@ -381,6 +394,41 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, cache: O
     q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
     out = attend(i, q, k, v, cache, offset, paged).reshape(b, s, h * hd)
     return linear(out, p["wo"].reshape(h * hd, d))
+
+
+def _normal(gen: torch.Generator, shape, dtype, device, scale: float) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=dtype, device=device) * scale
+
+
+def attention_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """An attention block's (d, heads, hd) / (heads, hd, d) weights with the
+    reference's init scales (and Qwen3's qk-norm gains under ``qk_norm``)."""
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd
+    dt = cfg.tdtype
+    s = 1.0 / math.sqrt(d)
+    attn = {
+        "wq": _normal(gen, (d, h, hd), dt, device, s),
+        "wk": _normal(gen, (d, kv, hd), dt, device, s),
+        "wv": _normal(gen, (d, kv, hd), dt, device, s),
+        "wo": _normal(gen, (h, hd, d), dt, device, s / math.sqrt(h)),
+    }
+    if cfg.qk_norm:
+        attn["q_norm"] = torch.ones((hd,), dtype=dt, device=device)
+        attn["k_norm"] = torch.ones((hd,), dtype=dt, device=device)
+    return attn
+
+
+def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
+    """The FFN of ``cfg.act`` with the reference's init scales: SwiGLU's
+    gate, up and down, or the two matrices of squared ReLU and GELU."""
+    d, f, dt = cfg.d_model, cfg.d_ff, cfg.tdtype
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    if cfg.act == "swiglu":
+        return {"w_gate": _normal(gen, (d, f), dt, device, s_in),
+                "w_up": _normal(gen, (d, f), dt, device, s_in),
+                "w_down": _normal(gen, (f, d), dt, device, s_out)}
+    return {"w_up": _normal(gen, (d, f), dt, device, s_in),
+            "w_down": _normal(gen, (f, d), dt, device, s_out)}
 
 
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -440,3 +488,21 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     path only over a device mesh; the port runs one device, so this is the
     dense combine whatever ``cfg.moe_impl`` says."""
     return moe_apply_dense(p, x, cfg)
+
+
+def xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of logits (B, S, V), taken in float32, against
+    targets (B, S): logsumexp minus the gold logit (the reference's
+    ``loss_fn`` and ``whisper_loss_fn``)."""
+    logits = logits.float()
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return torch.mean(torch.logsumexp(logits, dim=-1) - gold)
+
+
+def remat(fn, cfg: ModelConfig, cached: bool):
+    """``fn`` under activation checkpointing (``use_reentrant=False``) where
+    the reference remats a block: no cache, ``cfg.remat``, and autograd
+    recording.  Recomputation changes no bit of the outputs or gradients."""
+    if cached or not cfg.remat or not torch.is_grad_enabled():
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)

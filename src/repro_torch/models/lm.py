@@ -1,18 +1,30 @@
-"""Decoder LM of the attention families (dense, VLM, MoE): parameters,
-caches and the bf16 forward (torch counterpart of repro/models/lm.py's
-attention-family parts).
+"""Decoder LM of every family (torch counterpart of repro/models/lm.py):
+parameters, caches, the forward and the training loss.
 
 Parameters are plain nested dicts of tensors with the reference's names
 and per-layer shapes; where the reference stacks layers along a leading
 axis (for ``lax.scan``), the port keeps a Python list of per-layer dicts
-and loops over it.  A block is ``ln1, attn, ln2`` and then ``mlp`` (SwiGLU,
-squared-ReLU or GELU, with Qwen3's ``q_norm`` / ``k_norm`` in ``attn``
-under ``qk_norm``) or, in the MoE family, ``moe`` (an f32 router and the
-experts' stacked SwiGLU weights).  ``apply_lm`` takes the cache dicts of
-the quantized forwards (dense, or a paged pool with ``win_pos`` /
-``tree_mask`` / ``role_mask``), so every engine schedule runs on it
-unchanged.  The SSM, hybrid and audio families are not ported: their
-configs load, and ``init_lm`` / ``apply_lm`` raise naming the family."""
+and loops over it (the hybrid: a list of ``ng`` groups of ``attn_every``
+mamba blocks, then ``tail``; ``models/convert.py`` moves trees between
+the two layouts).  An attention block is ``ln1, attn, ln2`` and then
+``mlp`` (SwiGLU, squared-ReLU or GELU, with Qwen3's ``q_norm`` /
+``k_norm`` in ``attn`` under ``qk_norm``) or, in the MoE family, ``moe``
+(an f32 router and the experts' stacked SwiGLU weights).  An SSM block is
+``ln`` and ``mamba`` (``models/ssm.py``).  zamba2's hybrid applies ONE
+``shared_attn`` attention block after every ``attn_every`` mamba blocks:
+one set of tensors, each application with its own KV cache entry, its
+gradient the sum over the applications.  The audio family (whisper) is
+the encoder-decoder of ``models/whisper.py``; ``init_lm`` / ``apply_lm``
+/ ``init_cache`` / ``loss_fn`` hand it there.
+
+``apply_lm`` takes the cache dicts of the quantized forwards (dense, or,
+for the attention families, a paged pool with ``win_pos`` / ``tree_mask``
+/ ``role_mask``), so every engine schedule runs on it unchanged; the SSM,
+hybrid and audio families take a dense cache only, as in the reference.
+Without a cache and with ``cfg.remat`` (and autograd on), each block runs
+under ``torch.utils.checkpoint`` (``use_reentrant=False``): its
+activations are recomputed in the backward pass, which changes no bit of
+the loss or the gradients.  ``remat_policy="dots"`` is full remat here."""
 from __future__ import annotations
 
 import math
@@ -21,45 +33,49 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
+from repro_torch.models import whisper as W
 from repro_torch.models.common import Family, ModelConfig
 
 Params = Dict[str, Any]
 
-__all__ = ["init_lm", "init_layer", "init_embed", "init_cache", "apply_lm", "param_count"]
+__all__ = ["init_lm", "init_layer", "init_embed", "init_cache", "apply_lm", "loss_fn",
+           "hybrid_groups", "param_count"]
 
 # the families whose blocks are attention + an FFN (dense or MoE)
 _ATTENTION_FAMILIES = (Family.DENSE, Family.VLM, Family.MOE)
+_BLOCK_OF = {Family.DENSE: "dense", Family.VLM: "dense", Family.MOE: "moe", Family.SSM: "ssm"}
 
 
 def _normal(gen: torch.Generator, shape, dtype, device, scale: float) -> torch.Tensor:
     return torch.randn(shape, generator=gen, dtype=dtype, device=device) * scale
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _ATTENTION_FAMILIES:
-        raise NotImplementedError(f"the port does not serve the {cfg.family.value} family "
-                                  f"({cfg.name})")
+def hybrid_groups(cfg: ModelConfig) -> Tuple[int, int]:
+    """(full groups of ``attn_every`` mamba blocks + the shared attention
+    block, trailing mamba blocks)."""
+    return cfg.n_layers // cfg.attn_every, cfg.n_layers % cfg.attn_every
 
 
-def init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    """One block (attention + MLP, or attention + MoE in the MoE family)
-    with the reference's init scales."""
-    _check_family(cfg)
-    d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+def init_layer(gen: torch.Generator, cfg: ModelConfig, device, block: Optional[str] = None
+               ) -> Params:
+    """One block with the reference's init scales: ``block`` "dense"
+    (attention + MLP), "moe" (attention + MoE) or "ssm" (norm + mamba2);
+    by default the family's own block (the hybrid and audio families name
+    it)."""
+    block = block or _BLOCK_OF.get(cfg.family)
+    if block is None:
+        raise ValueError(f"init_layer: name the block of a {cfg.family.value} config")
     dt = cfg.tdtype
+    if block == "ssm":
+        return {"ln": {"g": torch.ones((cfg.d_model,), dtype=dt, device=device)},
+                "mamba": S.mamba_init(gen, cfg, device)}
+    d, f = cfg.d_model, cfg.d_ff
     s = 1.0 / math.sqrt(d)
-    attn = {
-        "wq": _normal(gen, (d, h, hd), dt, device, s),
-        "wk": _normal(gen, (d, kv, hd), dt, device, s),
-        "wv": _normal(gen, (d, kv, hd), dt, device, s),
-        "wo": _normal(gen, (h, hd, d), dt, device, s / math.sqrt(h)),
-    }
-    if cfg.qk_norm:
-        attn["q_norm"] = torch.ones((hd,), dtype=dt, device=device)
-        attn["k_norm"] = torch.ones((hd,), dtype=dt, device=device)
+    attn = L.attention_init(gen, cfg, device)
     layer = {"ln1": {"g": torch.ones((d,), dtype=dt, device=device)}, "attn": attn,
              "ln2": {"g": torch.ones((d,), dtype=dt, device=device)}}
-    if cfg.family is Family.MOE:
+    if block == "moe":
         e = cfg.n_experts
         layer["moe"] = {
             "router": _normal(gen, (d, e), torch.float32, device, s),
@@ -67,17 +83,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
             "w_up": _normal(gen, (e, d, f), dt, device, s),
             "w_down": _normal(gen, (e, f, d), dt, device, 1.0 / math.sqrt(f)),
         }
-    elif cfg.act == "swiglu":
-        layer["mlp"] = {
-            "w_gate": _normal(gen, (d, f), dt, device, s),
-            "w_up": _normal(gen, (d, f), dt, device, s),
-            "w_down": _normal(gen, (f, d), dt, device, 1.0 / math.sqrt(f)),
-        }
-    else:  # squared_relu, gelu: two matrices, no gate
-        layer["mlp"] = {
-            "w_up": _normal(gen, (d, f), dt, device, s),
-            "w_down": _normal(gen, (f, d), dt, device, 1.0 / math.sqrt(f)),
-        }
+    else:
+        layer["mlp"] = L.mlp_init(gen, cfg, device)
     return layer
 
 
@@ -94,11 +101,19 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
-    """Random LM params drawn from ``gen`` (whose device must match
-    ``device``)."""
-    _check_family(cfg)
+    """Random params of any family drawn from ``gen`` (whose device must
+    match ``device``), one layer at a time."""
+    if cfg.family is Family.AUDIO:
+        return W.init_whisper(gen, cfg, device)
     params = init_embed(gen, cfg, device)
-    params["layers"] = [init_layer(gen, cfg, device) for _ in range(cfg.n_layers)]
+    if cfg.family is Family.HYBRID:
+        ng, rem = hybrid_groups(cfg)
+        params["layers"] = [[init_layer(gen, cfg, device, "ssm") for _ in range(cfg.attn_every)]
+                            for _ in range(ng)]
+        params["tail"] = [init_layer(gen, cfg, device, "ssm") for _ in range(rem)]
+        params["shared_attn"] = init_layer(gen, cfg, device, "dense")
+    else:
+        params["layers"] = [init_layer(gen, cfg, device) for _ in range(cfg.n_layers)]
     return params
 
 
@@ -115,45 +130,141 @@ def param_count(params) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device,
                dtype: Optional[torch.dtype] = None) -> Params:
-    """Dense KV cache for prefill: ``{"length": 0, "attn": {"k", "v"}}``
-    with (n_layers, batch, s_max, kv heads, hd) buffers."""
-    _check_family(cfg)
-    shape = (cfg.n_layers, batch, s_max, L.kv_store_heads(cfg), cfg.hd)
+    """The dense cache of prefill and decode, written in place by
+    ``apply_lm``: ``{"length": 0, "attn": {"k", "v"}}`` with (n_layers,
+    batch, s_max, kv heads, hd) buffers for the attention families;
+    ``"ssm": {"state", "conv"}`` with a leading (n_layers,) axis for the
+    SSM family; for the hybrid, ``"ssm"`` with leading (ng, attn_every),
+    ``"ssm_tail"`` with (rem,) and ``"attn"`` with one entry per shared
+    block application (ng); whisper's cache for the audio family."""
     dt = dtype or cfg.tdtype
-    return {
-        "length": 0,
-        "attn": {
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device),
-        },
-    }
+    fam = cfg.family
+    if fam is Family.AUDIO:
+        return W.init_whisper_cache(cfg, batch, s_max, device, dt)
+    cache: Params = {"length": 0}
+
+    def stacked(lead):
+        base = S.init_ssm_cache(cfg, batch, dt, device)
+        return {k: torch.zeros(lead + tuple(v.shape), dtype=v.dtype, device=device)
+                for k, v in base.items()}
+
+    def attn(n):
+        shape = (n, batch, s_max, L.kv_store_heads(cfg), cfg.hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device)}
+
+    if fam in _ATTENTION_FAMILIES:
+        cache["attn"] = attn(cfg.n_layers)
+    elif fam is Family.SSM:
+        cache["ssm"] = stacked((cfg.n_layers,))
+    else:  # hybrid
+        ng, rem = hybrid_groups(cfg)
+        cache["ssm"] = stacked((ng, cfg.attn_every))
+        if rem:
+            cache["ssm_tail"] = stacked((rem,))
+        cache["attn"] = attn(ng)
+    return cache
+
+
+def _attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, i: int, cache, offset,
+                     positions, paged) -> torch.Tensor:
+    """Pre-norm attention (layer i's cache entry) and MLP or MoE."""
+    x = x + L.attention_apply(p["attn"], L.rmsnorm(p["ln1"], x), cfg, i, cache, offset,
+                              positions, paged)
+    z = L.rmsnorm(p["ln2"], x)
+    return x + (L.moe_apply(p["moe"], z, cfg) if "moe" in p else L.mlp_apply(p["mlp"], z, cfg))
+
+
+def _ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[Params],
+               decode: bool) -> torch.Tensor:
+    """Pre-norm mamba2 block.  ``state`` holds views of this block's entry
+    in the cache (``state``, ``conv``), overwritten in place with the new
+    state; None trains or scores without a cache."""
+    z = L.rmsnorm(p["ln"], x)
+    if decode:
+        y, new = S.mamba_decode(p["mamba"], z, cfg, state)
+    else:
+        y, fstate, tail = S.mamba_apply(p["mamba"], z, cfg,
+                                        state["state"] if state is not None else None,
+                                        state["conv"] if state is not None else None)
+        new = {"state": fstate, "conv": tail}
+    if state is not None:
+        state["state"].copy_(new["state"])
+        state["conv"].copy_(new["conv"])
+    return x + y
+
+
+def _ssm_state(tree: Optional[Params], *index) -> Optional[Params]:
+    return None if tree is None else {k: v[index] for k, v in tree.items()}
 
 
 def apply_lm(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              cache: Optional[Params] = None,
-             vision_embeds: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[Params]]:
-    """The attention families' forward (the reference's ``apply_lm`` over
-    ``_dense_block``): embed (after ``vision_embeds`` (B, T_img, d), which
-    a VLM's image tokens prepend), pre-norm attention and MLP or MoE
-    blocks, final norm, head; logits past ``vocab`` (a padded vocabulary)
-    are -1e9.  Cache tensors are written in place; the returned cache dict
-    carries the advanced length."""
-    _check_family(cfg)
+             vision_embeds: Optional[torch.Tensor] = None,
+             frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Optional[Params]]:
+    """The forward of every family: embed (after ``vision_embeds`` (B,
+    T_img, d), which a VLM's image tokens prepend), the blocks, final norm,
+    head; logits past ``vocab`` (a padded vocabulary) are -1e9.  The SSM
+    and hybrid families run the chunked scan when S > 1 (prefill, extend,
+    training) and the recurrent step when S == 1 with a cache; the audio
+    family is ``whisper.apply_whisper`` (``frames`` (B, n_frames, d) feed
+    its encoder).  Cache tensors are written in place; the returned cache
+    dict carries the advanced length."""
+    fam = cfg.family
+    if cache is not None and "page_table" in cache and fam not in _ATTENTION_FAMILIES:
+        raise NotImplementedError(f"paged KV cache: family {fam.value}")
+    if fam is Family.AUDIO:
+        return W.apply_whisper(params, cfg, tokens, frames=frames, cache=cache)
     b = tokens.shape[0]
     x = params["embed"]["tok"][tokens.long()].to(cfg.tdtype)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(cfg.tdtype), x], dim=1)
     s = x.shape[1]
-    offset, positions, paged = L.forward_cache_ctx(cache, b, s)
-    for i, p in enumerate(params["layers"]):
-        x = x + L.attention_apply(p["attn"], L.rmsnorm(p["ln1"], x), cfg, i, cache, offset,
-                                  positions, paged)
-        z = L.rmsnorm(p["ln2"], x)
-        x = x + (L.moe_apply(p["moe"], z, cfg) if cfg.family is Family.MOE
-                 else L.mlp_apply(p["mlp"], z, cfg))
+    decode = cache is not None and s == 1
+    if fam is Family.SSM:  # no attention: no positions
+        offset, positions, paged = (int(cache["length"]) if cache is not None else 0), None, None
+    else:
+        offset, positions, paged = L.forward_cache_ctx(cache, b, s, x.device)
+
+    def attn_block(p, i):
+        return L.remat(lambda xc: _attention_block(p, xc, cfg, i, cache, offset, positions,
+                                                    paged), cfg, cache is not None)
+
+    def ssm_block(p, state):
+        return L.remat(lambda xc: _ssm_block(p, xc, cfg, state, decode), cfg, cache is not None)
+
+    ssm = cache.get("ssm") if cache is not None else None
+    if fam is Family.SSM:
+        for i, p in enumerate(params["layers"]):
+            x = ssm_block(p, _ssm_state(ssm, i))(x)
+    elif fam is Family.HYBRID:
+        for g, group in enumerate(params["layers"]):
+            for j, p in enumerate(group):
+                x = ssm_block(p, _ssm_state(ssm, g, j))(x)
+            x = attn_block(params["shared_attn"], g)(x)
+        tail = cache.get("ssm_tail") if cache is not None else None
+        for t, p in enumerate(params["tail"]):
+            x = ssm_block(p, _ssm_state(tail, t))(x)
+    else:
+        for i, p in enumerate(params["layers"]):
+            x = attn_block(p, i)(x)
     x = L.rmsnorm(params["final_norm"], x)
     logits = L.linear(x, params["embed"]["head"].to(cfg.tdtype))
     if cfg.vocab_padded != cfg.vocab:
         pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
         logits = logits.masked_fill(pad, -1e9)
     return logits, L.advance_cache(cache, offset, s)
+
+
+def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
+            vision_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Next-token cross-entropy over tokens (B, S+1): inputs ``[:, :-1]``,
+    targets ``[:, 1:]``; a VLM scores its text positions only, the audio
+    family is ``whisper.whisper_loss_fn`` over ``frames``."""
+    if cfg.family is Family.AUDIO:
+        return W.whisper_loss_fn(params, cfg, tokens, frames)
+    logits, _ = apply_lm(params, cfg, tokens[:, :-1], vision_embeds=vision_embeds)
+    if vision_embeds is not None:
+        logits = logits[:, vision_embeds.shape[1]:, :]
+    return L.xent(logits, tokens[:, 1:])

@@ -7,9 +7,10 @@ repro/serving/api.py).
   against the detokenized output (``default_detokenize`` unless the engine
   is given its own).
 * ``RequestOutput`` / ``CompletionOutput`` — the streaming result type.
-* ``EngineConfig`` — engine-wide knobs.  The paged-attention path is not a
-  knob here: the device decides (kernel on the card, plain version on the
-  CPU).
+* ``EngineConfig`` — engine-wide knobs.  ``paged_attn_impl`` takes the
+  reference's values (``resolve_paged_attn_impl``), but the device decides
+  the route: the paged-attention kernel on the card, its plain version on
+  the CPU, whichever value is given.
 
 ``warn_deprecated_once`` backs the deprecated ``serve_*`` wrappers.
 """
@@ -24,6 +25,7 @@ __all__ = [
     "CompletionOutput",
     "RequestOutput",
     "EngineConfig",
+    "resolve_paged_attn_impl",
     "default_detokenize",
     "warn_deprecated_once",
 ]
@@ -35,6 +37,30 @@ def default_detokenize(token_id: int) -> str:
     -> "5 17 "``).  Stop-string matching runs on this stream; pass a real
     detokenizer to ``Engine`` when serving a real vocabulary."""
     return f"{token_id} "
+
+
+_PAGED_ATTN_IMPLS = ("gather", "pallas")
+
+
+def resolve_paged_attn_impl(impl: Optional[str] = "auto", backend: Optional[str] = None) -> str:
+    """A paged-attention choice resolved as the reference resolves it:
+    ``"gather"`` or ``"pallas"`` as given, ``None`` / ``"auto"`` to
+    ``"pallas"`` on a TPU backend and ``"gather"`` elsewhere (``backend``
+    defaults to ``"gpu"`` where CUDA is present, else ``"cpu"``), anything
+    else ValueError.  The name is kept for the reference's API; in the port
+    both names run the same attention, the kernel on the card and its plain
+    version on the CPU."""
+    if impl in _PAGED_ATTN_IMPLS:
+        return impl
+    if impl not in (None, "auto"):
+        raise ValueError(
+            f"paged_attn_impl must be one of {_PAGED_ATTN_IMPLS + ('auto',)}, got {impl!r}"
+        )
+    if backend is None:
+        import torch
+
+        backend = "gpu" if torch.cuda.is_available() else "cpu"
+    return "pallas" if backend == "tpu" else "gather"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -161,6 +187,12 @@ class EngineConfig:
     # set, receives a postmortem JSON file per anomaly.
     flight_ring: int = 256
     flight_dump_dir: Optional[str] = None
+    # the reference's paged decode-attention choice: "gather" | "pallas" |
+    # "auto" | None, checked by ``resolve_paged_attn_impl`` when the Engine
+    # is built (as the reference checks it).  Every value selects the same
+    # route in the port: the paged-attention kernel (kernels/csrc/
+    # paged_attn.cu) on a CUDA device, its plain version on the CPU.
+    paged_attn_impl: Optional[str] = None
 
     def __post_init__(self):
         if self.par_mode not in ("off", "wdos"):

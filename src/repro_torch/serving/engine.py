@@ -119,6 +119,7 @@ from repro_torch.serving.api import (
     RequestOutput,
     SamplingParams,
     default_detokenize,
+    resolve_paged_attn_impl,
     warn_deprecated_once,
 )
 from repro_torch.serving.batcher import BatchConfig, ContinuousBatcher
@@ -171,7 +172,7 @@ def resolve_device(device) -> torch.device:
 class ServingModel:
     cfg: ModelConfig
     params: Any
-    mode: str = "w4a8"  # w4a8 (target) | bvq (draft) | bf16 (dense, VLM or MoE)
+    mode: str = "bf16"  # bf16 (dense, VLM or MoE) | w4a8 (target) | bvq (draft)
     s_max: int = 512
     device: Any = "cuda"
 
@@ -463,6 +464,8 @@ class Engine:
         trace: Optional[Tracer] = None,
     ):
         cfg = config if config is not None else EngineConfig()
+        if cfg.paged_attn_impl is not None:
+            resolve_paged_attn_impl(cfg.paged_attn_impl)  # the reference's check
         self.device = resolve_device(device)
         for model in (target, draft):
             if model.device != self.device:

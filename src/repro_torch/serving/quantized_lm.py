@@ -27,7 +27,6 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core import bvq as bvq_mod
@@ -35,6 +34,7 @@ from repro_torch.core import quantization as q
 from repro_torch.core import rotation as rot
 from repro_torch.kernels import ops
 from repro_torch.kernels.w4a8_matmul import prepack
+from repro_torch.models import convert
 from repro_torch.models import layers as L
 from repro_torch.models.common import Family, ModelConfig
 
@@ -51,7 +51,6 @@ __all__ = [
     "quantize_moe_lm",
     "quantize_moe_layer",
     "apply_quantized_moe_lm",
-    "fold_expert_split",
     "params_from_numpy",
 ]
 
@@ -235,7 +234,7 @@ def apply_quantized_lm(
     _check_dense(cfg)
     b, s = tokens.shape
     r2 = rot.plan_rotation(cfg.d_ff)
-    offset, positions, paged = L.forward_cache_ctx(cache, b, s)
+    offset, positions, paged = L.forward_cache_ctx(cache, b, s, tokens.device)
     x = qparams["embed"][tokens.long()].to(cfg.tdtype)
     for i, p in enumerate(qparams["layers"]):
         x = x + _w4a8_attention(p, _norm_only(x), cfg, i, cache, offset, positions, paged)
@@ -257,7 +256,7 @@ def apply_bvq_lm(
     _check_dense(cfg)
     b, s = tokens.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    offset, positions, paged = L.forward_cache_ctx(cache, b, s)
+    offset, positions, paged = L.forward_cache_ctx(cache, b, s, tokens.device)
     x = qparams["embed"][tokens.long()].to(cfg.tdtype)
     for i, p in enumerate(qparams["layers"]):
         z = L.rmsnorm(p["ln1"], x)
@@ -347,7 +346,7 @@ def apply_quantized_moe_lm(
     if cache is not None and "page_table" in cache:
         raise NotImplementedError("the W4A8 MoE forward takes a dense cache, as the reference's")
     b, s = tokens.shape
-    offset, positions, paged = L.forward_cache_ctx(cache, b, s)
+    offset, positions, paged = L.forward_cache_ctx(cache, b, s, tokens.device)
     x = qparams["embed"][tokens.long()].to(cfg.tdtype)
     for i, p in enumerate(qparams["layers"]):
         x = x + _w4a8_attention(p, L.rmsnorm(p["ln1"], x), cfg, i, cache, offset, positions,
@@ -366,80 +365,37 @@ def apply_quantized_moe_lm(
 # ---------------------------------------------------------------------------
 
 
-def _tensor(a, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    arr = np.asarray(a)
-    if arr.dtype.kind not in "biuf":  # e.g. bfloat16 from ml_dtypes
-        arr = arr.astype(np.float32)
-    t = torch.from_numpy(np.array(arr)).to(device)
-    return t.to(dtype) if dtype is not None else t
-
-
-def _layer(tree, i: int):
-    """Slice layer i out of a layer-stacked nested dict of arrays."""
-    if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return np.asarray(tree)[i]
-
-
-def fold_expert_split(moe: Params, n_experts: int) -> Params:
-    """The reference's (E * split, d, f / split) / (E * split, f / split, d)
-    expert stacks, made when experts are fewer than the model axis, folded
-    into the port's (E, d, f) / (E, f, d) (numpy arrays; split = 1 leaves
-    them as they are)."""
-    out = dict(moe)
-    es, d, fs = np.shape(moe["w_gate"])
-    split = es // n_experts
-    for name in ("w_gate", "w_up"):
-        w = np.asarray(moe[name]).reshape(n_experts, split, d, fs)
-        out[name] = w.transpose(0, 2, 1, 3).reshape(n_experts, d, split * fs)
-    out["w_down"] = np.asarray(moe["w_down"]).reshape(n_experts, split * fs, d)
-    return out
-
-
 def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Params:
     """The reference's parameter tree, as nested dicts of numpy arrays,
     -> the port's params on ``device``.
 
-    ``mode`` names the tree: "bf16" (``lm.init_lm``: dense, two-matrix or
-    MoE blocks, split expert stacks folded by ``fold_expert_split``,
-    qk-norm weights, padded vocabularies), "w4a8"
+    ``mode`` names the tree: "bf16" (``lm.init_lm``'s tree of any family,
+    through ``models.convert.params_from_numpy``), "w4a8"
     (``quantize_dense_lm``; the packed weights are reordered for the W4A8
     kernel, ``w4a8_matmul.prepack``), "bvq" (``bvq_compress_lm``, each
     BVQWeight given as its fields ``codebooks``, ``scales``, ``indices``,
     ``shape``, ``vec_dim``) or "w4a8_moe" (``quantize_moe_lm``: attention
     and head prepacked, experts kept as packed (E, K/2, F) + (E, 1, F)
     scales).  Layer-stacked arrays (leading axis n_layers) are split into
-    the port's per-layer list; float weights take the model dtype, the MoE
-    router and every scale float32."""
+    the port's per-layer list (``convert.from_reference``); float weights
+    take the model dtype, the MoE router and every scale float32."""
+    if mode == "bf16":
+        return convert.params_from_numpy(tree, cfg, device)
     dt = cfg.tdtype
-    n = cfg.n_layers
-    layers = tree["layers"]
+    layers = convert.from_reference(tree, cfg)["layers"]
 
     def fp(a):
-        return _tensor(a, device, dt)
+        return convert.as_tensor(a, device, dt)
 
     def f32(a):
-        return _tensor(a, device, torch.float32)
+        return convert.as_tensor(a, device, torch.float32)
 
     def qw(d):
-        return {"packed": prepack(_tensor(d["packed"], device, torch.int8)), "sw": f32(d["sw"])}
+        return {"packed": prepack(convert.as_tensor(d["packed"], device, torch.int8)),
+                "sw": f32(d["sw"])}
 
-    def qk_extra(i):
-        return {k: fp(a) for k, a in _layer(layers.get("qk_extra", {}), i).items()}
-
-    if mode == "bf16":
-        def group(name, arrs):
-            if name == "moe":
-                arrs = fold_expert_split(arrs, cfg.n_experts)
-                return {k: (f32 if k == "router" else fp)(a) for k, a in arrs.items()}
-            return {k: fp(a) for k, a in arrs.items()}
-
-        return {
-            "embed": {"tok": fp(tree["embed"]["tok"]), "head": fp(tree["embed"]["head"])},
-            "final_norm": {"g": fp(tree["final_norm"]["g"])},
-            "layers": [{grp: group(grp, arrs) for grp, arrs in _layer(layers, i).items()}
-                       for i in range(n)],
-        }
+    def qk_extra(lp):
+        return {k: fp(a) for k, a in lp.get("qk_extra", {}).items()}
 
     names = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
     if mode == "w4a8":
@@ -447,20 +403,17 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Para
             "embed": fp(tree["embed"]),
             "head": qw(tree["head"]),
             "layers": [
-                {**{name: qw(_layer(layers[name], i)) for name in names},
-                 "qk_extra": qk_extra(i)}
-                for i in range(n)
+                {**{name: qw(lp[name]) for name in names}, "qk_extra": qk_extra(lp)}
+                for lp in layers
             ],
         }
 
     if mode == "bvq":
-        def bw(d, i):
-            cb = np.asarray(d["codebooks"])[i]
-            sc = np.asarray(d["scales"])[i]
+        def bw(d):
             bwt = bvq_mod.BVQWeight(
-                codebooks=_tensor(cb, device, torch.int8),
-                scales=_tensor(sc, device, torch.float32),
-                indices=_tensor(np.asarray(d["indices"])[i], device, torch.int32),
+                codebooks=convert.as_tensor(d["codebooks"], device, torch.int8),
+                scales=convert.as_tensor(d["scales"], device, torch.float32),
+                indices=convert.as_tensor(d["indices"], device, torch.int32),
                 shape=tuple(d["shape"]),
                 vec_dim=int(d["vec_dim"]),
             )
@@ -472,21 +425,21 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Para
             "final_norm": {"g": fp(tree["final_norm"]["g"])},
             "layers": [
                 {
-                    "ln1": {"g": fp(np.asarray(layers["ln1"]["g"])[i])},
-                    "ln2": {"g": fp(np.asarray(layers["ln2"]["g"])[i])},
-                    **{name: bw(layers[name], i) for name in names},
-                    "qk_extra": qk_extra(i),
+                    "ln1": {"g": fp(lp["ln1"]["g"])},
+                    "ln2": {"g": fp(lp["ln2"]["g"])},
+                    **{name: bw(lp[name]) for name in names},
+                    "qk_extra": qk_extra(lp),
                 }
-                for i in range(n)
+                for lp in layers
             ],
         }
 
     if mode == "w4a8_moe":
         def experts(d):
-            return {"packed": _tensor(d["packed"], device, torch.int8), "sw": f32(d["sw"])}
+            return {"packed": convert.as_tensor(d["packed"], device, torch.int8),
+                    "sw": f32(d["sw"])}
 
-        def moe_layer(i):
-            lp = _layer(layers, i)
+        def moe_layer(lp):
             return {"ln1": {"g": fp(lp["ln1"]["g"])}, "ln2": {"g": fp(lp["ln2"]["g"])},
                     **{name: qw(lp[name]) for name in ("wq", "wk", "wv", "wo")},
                     "router": f32(lp["router"]),
@@ -496,6 +449,6 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device) -> Para
             "embed": fp(tree["embed"]),
             "head": qw(tree["head"]),
             "final_norm": {"g": fp(tree["final_norm"]["g"])},
-            "layers": [moe_layer(i) for i in range(n)],
+            "layers": [moe_layer(lp) for lp in layers],
         }
     raise ValueError(f"params_from_numpy: unknown mode {mode!r}")

@@ -38,6 +38,7 @@ from repro.models import lm as jlm
 from repro_torch import configs as tconfigs
 from repro_torch.core import costs
 from repro_torch.models import common as tcommon
+from repro_torch.models import convert as tconvert
 from repro_torch.models import layers as tL
 from repro_torch.models import lm as tlm
 from repro_torch.serving import quantized_lm as tqlm
@@ -107,11 +108,19 @@ def test_registry_matches_reference():
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b", "whisper-large-v3"])
 def test_unported_families_raise(arch):
+    """The recurrent and encoder-decoder families run on a dense cache (their
+    parity is tests/test_torch_ssm.py and tests/test_torch_whisper.py);
+    what stays unported for them is the Engine's paged pool, which raises
+    naming the family, as the reference's ``apply_lm`` does."""
     cfg = tconfigs.get_smoke(arch)
+    params = tlm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
+    logits, _ = tlm.apply_lm(params, cfg, torch.zeros((1, 2), dtype=torch.int32),
+                             frames=torch.zeros((1, cfg.n_audio_frames, cfg.d_model)))
+    assert logits.shape == (1, 2, cfg.vocab_padded)
+    paged = {"page_table": torch.zeros((1, 1), dtype=torch.int32),
+             "lengths": torch.zeros(1, dtype=torch.int32)}
     with pytest.raises(NotImplementedError, match=cfg.family.value):
-        tlm.init_lm(torch.Generator().manual_seed(0), cfg, "cpu")
-    with pytest.raises(NotImplementedError, match=cfg.family.value):
-        tlm.apply_lm({}, cfg, torch.zeros((1, 2), dtype=torch.int32))
+        tlm.apply_lm(params, cfg, torch.zeros((1, 2), dtype=torch.int32), cache=paged)
 
 
 def test_qk_head_norm_matches():
@@ -161,7 +170,7 @@ def test_moe_apply_dense_matches(arch, tp):
     assert params["w_gate"].shape[0] == jcfg.n_experts * jL.moe_ff_split(jcfg, tp)
     x = np.random.RandomState(5).randn(2, 100, jcfg.d_model).astype(np.float32)
     want = np.asarray(jL.moe_apply_dense(params, jnp.asarray(x), jcfg))
-    folded = tqlm.fold_expert_split({k: np.asarray(v) for k, v in params.items()},
+    folded = tconvert.fold_expert_split({k: np.asarray(v) for k, v in params.items()},
                                     tcfg.n_experts)
     assert folded["w_gate"].shape == (tcfg.n_experts, tcfg.d_model, tcfg.d_ff)
     tp_ = {k: torch.from_numpy(np.array(v)) for k, v in folded.items()}

@@ -514,3 +514,53 @@ def test_deprecated_wrappers_match_jax(pairs):
     assert tengine.serve_batch(tkey, tt, td, [], BatchConfig())[0] == []
     with pytest.raises(NotImplementedError, match="host_gather"):
         tengine.serve_batch(tkey, tt, td, prompts, BatchConfig(kv_path="host"))
+
+
+# ---------------------------------------------------------------------------
+# API defaults held to the reference
+# ---------------------------------------------------------------------------
+
+
+def test_serving_model_default_mode_matches_reference(pairs):
+    """``ServingModel(cfg, params)`` picks the bf16 forward in both
+    packages, and the port's then emits the JAX model's greedy tokens."""
+    import dataclasses
+
+    field = {f.name: f.default for f in dataclasses.fields(jengine.ServingModel)}["mode"]
+    assert field == "bf16"
+    assert {f.name: f.default for f in dataclasses.fields(ServingModel)}["mode"] == field
+    (jt, jd), (tt, td) = pairs
+    model = ServingModel(TLM_SMOKE, tt.params, s_max=S_MAX, device="cpu")
+    assert model.mode == jengine.ServingModel(jt.cfg, jt.params).mode == "bf16"
+    sp, prompt = SamplingParams(max_tokens=6), _prompts(1, seed=9)[0]
+    assert _ref((model, td), prompt, sp) == _jax_ref((jt, jd), prompt, JaxSamplingParams(
+        max_tokens=6))
+
+
+@pytest.mark.parametrize("impl", [None, "auto", "gather", "pallas", "triton", "GATHER"])
+def test_paged_attn_impl_matches_reference(pairs, impl):
+    """``EngineConfig.paged_attn_impl`` takes the reference's values: both
+    packages resolve each the same way on every backend, both build an
+    Engine for a valid value and both raise ValueError at the Engine for
+    an invalid one."""
+    from repro.serving.api import resolve_paged_attn_impl as jresolve
+    from repro_torch.serving.api import resolve_paged_attn_impl as tresolve
+
+    for backend in ("tpu", "gpu", "cpu"):
+        try:
+            want = jresolve(impl, backend)
+        except ValueError:
+            with pytest.raises(ValueError, match="paged_attn_impl"):
+                tresolve(impl, backend)
+        else:
+            assert tresolve(impl, backend) == want
+    (jt, jd), (tt, td) = pairs
+    jcfg, tcfg = JaxEngineConfig(paged_attn_impl=impl), EngineConfig(paged_attn_impl=impl)
+    assert tcfg.paged_attn_impl == jcfg.paged_attn_impl == impl
+    valid = impl in (None, "auto", "gather", "pallas")
+    for build in (lambda: JaxEngine(jt, jd, jcfg), lambda: Engine(tt, td, tcfg, device="cpu")):
+        if valid:
+            build()
+        else:
+            with pytest.raises(ValueError, match="paged_attn_impl"):
+                build()

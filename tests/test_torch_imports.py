@@ -30,4 +30,9 @@ def test_port_imports_neither_jax_nor_reference():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serving.engine" in report["modules"]
     assert "repro_torch.kernels.w4a8_matmul" in report["modules"]
+    for name in ("models.ssm", "models.whisper", "models.convert", "optim.adamw",
+                 "optim.schedule", "optim.compression", "data.pipeline", "checkpoint.store",
+                 "runtime.fault_tolerance", "launch.mesh", "launch.steps", "launch.train",
+                 "core.tree"):
+        assert f"repro_torch.{name}" in report["modules"], name
     assert report["leaked"] == []
