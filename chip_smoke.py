@@ -125,14 +125,32 @@ Phases, in order (any failure exits non-zero before the final line):
    defaults: device cuda, the quantized smoke pair) in a child process:
    one streamed completion equals ``Engine.run`` of the same request, and
    /healthz answers 200; the process is stopped after.
-19. Dense path: the bf16 pair at the paper's widths (``build_paper_pair(
+19. Host path: the legacy host-gather loop (``serve_batch(..., BatchConfig(
+   max_batch=4, max_tokens=32, kv_path="host"))``) over the main path's
+   pair and requests: host pools, the whole (n_layers, 4, s_max, kv heads,
+   hd) K and V buffers of each model uploaded and pulled back every round,
+   one batched forward per draft step and per verify (the buffers read as
+   a pool of one s_max-wide page per slot: the paged-attention kernel).
+   Every main-path kernel launches, each row equals the main path's except
+   at a near-tie, the sinks saw every token, ``kv_copy_s > 0``; prints
+   tokens/s beside the main path's, rounds, copy ms and K/V bytes per
+   round.
+20. Quickstart path: examples/quickstart.py's steps through the port on
+   the card: ``quantized_linear_apply`` (the W4A8 kernel) at M = 32 on
+   (4096, 11008) and (11008, 4096), plain and LRU-rotated (the R2
+   rotation kernel), each within rtol 1e-6 of the CPU plain version, with
+   SQNR and kurtosis before / after; the draft's bits per weight; the
+   Markov LM at vocab 64 through ``sd_generate`` / ``apsd_generate``
+   (greedy equal to ``markov_greedy_decode``, sampled runs replay
+   identically); ``fig6_table()`` inside ``PAPER_BANDS``.
+21. Dense path: the bf16 pair at the paper's widths (``build_paper_pair(
    quantize=False)``, 6.7 B target parameters) at ``EngineConfig()``, the
    main path's prompts: paged attention launches, no matmul or rotation
    kernel does, and each row equals the target-only greedy decode through
    the paged path except at a near-tie (the dense-cache decode is
    compared and reported, as on the main path).  The pair is freed after
    it.
-20. Qwen3 path: Qwen3-8B at full width and depth (36 layers, GQA 32/8,
+22. Qwen3 path: Qwen3-8B at full width and depth (36 layers, GQA 32/8,
    qk-norm, d_ff 12288, vocab 151,936) as a W4A8 + LRU target (R2 plan
    n = 12288, m = 12), built one layer at a time, with the same config cut
    to 2 layers as a BVQ draft: ``EngineConfig()`` (every main-path kernel
@@ -141,7 +159,7 @@ Phases, in order (any failure exits non-zero before the final line):
    KV (reported against those rows), mixed KV + tree (both tree bodies;
    rows equal the chain rows of their kind except at a near-tie) and the
    target drafting for itself (``adaptive=True``: PAR, acceptance 1.0).
-21. MoE path: ``moonshot-v1-16b-a3b`` as the repo defines it (48 layers,
+23. MoE path: ``moonshot-v1-16b-a3b`` as the repo defines it (48 layers,
    64 experts top-6, ~28 B parameters, ~56 GB in bf16) at full width and
    depth with a 2-layer draft, over paged KV at ``EngineConfig()``: paged
    attention launches and no quantized kernel does; rows equal the
@@ -154,45 +172,46 @@ Phases, in order (any failure exits non-zero before the final line):
    timed, tokens equal except at a near-tie (top-2, or the first
    differing expert selections of the row within ROUTER_NEAR_TIE in both
    runs), w4a8 launching only in the first.
-22. Nemotron path: Nemotron-4-15B in bf16 (squared ReLU, GQA 48/8: G = 6,
+24. Nemotron path: Nemotron-4-15B in bf16 (squared ReLU, GQA 48/8: G = 6,
    vocab 256,000, ~15.6 B parameters) at full width and depth with a
    2-layer draft, 2 requests x 16 tokens: paged attention launches, rows
    equal the target-only paged greedy decode except at a near-tie.
-23. Card against CPU at smoke size: one smoke pair built on the CPU from a
+25. Card against CPU at smoke size: one smoke pair built on the CPU from a
    fixed seed, copied to the card; the same requests through the port on
    cuda (kernels) and on cpu (plain versions) with seven engines (greedy
    chain, greedy mixed-KV tree, sampled chain, sampled mixed-KV tree, a
    staggered adaptive WDOS chain with two sampled requests, and the prefix
    cache on the reference's prefix workload, fp chain and mixed-KV chain)
+   and the legacy host-gather loop (two slots for the four requests)
    must give the same tokens, unless the first divergence is shown to be
    a near-tie: of the target's top-2 logits for a greedy row, or, for a
    sampled row, a host decision taken from logit rows that differ by at
    most NEAR_TIE between the devices; the prefix stats must be equal.
-24. Families card against CPU: the smoke configs of phases 20-22
+26. Families card against CPU: the smoke configs of phases 22-24
    (``qwen3-smoke`` W4A8 + BVQ in chain and mixed-KV tree engines,
    ``moonshot-smoke`` and ``nemotron-smoke`` bf16 chain), the same rule;
    a MoE row is also excused where card and CPU, replaying the row's
    common prefix, first select different experts only at router
    near-ties (k-th against (k+1)-th router logit within ROUTER_NEAR_TIE
    at that layer and token, in both runs).
-25. Train path: ``launch.train.Trainer`` on mamba2-1.3b at full width and
+27. Train path: ``launch.train.Trainer`` on mamba2-1.3b at full width and
    depth (48 layers, d 2048, bf16, float32 moments, remat), batch 4 x 512
    tokens, 8 steps with a checkpoint at step 4: losses and grad norms
    finite, parameters moved; step ms, tokens/s, peak GB and the model
    FLOPs over the bf16 peak; a fresh Trainer restores step 4 and its
    steps 5-7 give the first run's losses and grad norms bit for bit.
-26. Draft train path: the paper's draft at LLaMA-68M widths trained 200
+28. Draft train path: the paper's draft at LLaMA-68M widths trained 200
    steps on the synthetic stream (batch 32 x 256): the last loss below
    LOSS_DROP times the first; ms per step.
-27. Elastic path: examples/train_and_recover.py's three phases through the
+29. Elastic path: examples/train_and_recover.py's three phases through the
    port on mamba2-smoke (loss falls, a restart continues, an
    ElasticTrainer survives a lost node).
-28. SSM families path: mamba2-1.3b, zamba2-7b and whisper-large-v3 at full
+30. SSM families path: mamba2-1.3b, zamba2-7b and whisper-large-v3 at full
    width and depth, 2 x 16 greedy tokens through prefill and cached
    decode, in bf16 and then float32 (the same weights cast): float32
    tokens equal a full re-forward's argmax except at a near-tie; bf16
    decode logits within BF16_DECODE_FACTOR times the bf16 re-forward's
-   distance from the float32 re-forward; card against CPU at smoke size.  Phases 25-28
+   distance from the float32 re-forward; card against CPU at smoke size.  Phases 27-30
    print their seconds.
 
 Each path prints its tokens/s, rounds, target forwards per emitted token,
@@ -895,7 +914,7 @@ def _prompts(n, lo, hi, vocab, seed):
             for _ in range(n)]
 
 
-def phase_main_path(dev, seed):
+def phase_main_path(dev, seed, report=None):
     from repro_torch.launch.serve import build_paper_pair, greedy_reference
     from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
 
@@ -908,7 +927,7 @@ def phase_main_path(dev, seed):
     prompts = _prompts(4, 32, 128, target.cfg.vocab, seed)
     sp = SamplingParams(max_tokens=32)
     outs, launches = _drive("main_path", Engine(target, draft, EngineConfig(), device=dev),
-                            prompts, sp, dev)
+                            prompts, sp, dev, report=report)
     _check_rotations("main_path", launches, target.cfg.n_layers)
     # the target-only decode runs the dense-cache path, whose attention
     # takes bf16 operands (the reference's _decode_attention), while the
@@ -1058,7 +1077,8 @@ def _drive(phase, eng, prompts, sps, dev, needs=None, stagger=False, report=None
                             for k, v in sorted(clock.seconds.items())},
          kv_bytes_per_token={"target": t_stats.bytes_per_token,
                              "draft": d_stats.bytes_per_token},
-         kv_bytes_per_token_by_kind=summary["kv_bytes_per_token"],
+         kv_bytes_per_token_by_kind={"target": eng._t_pool.bytes_per_token_by_kind(),
+                                     "draft": eng._d_pool.bytes_per_token_by_kind()},
          max_memory_allocated=torch.cuda.max_memory_allocated(dev), launches=launches)
     if needs is None:
         needs = [k for k, path in PATH_OF.items() if path == phase and k not in NO_PATH]
@@ -1663,7 +1683,10 @@ def phase_card_vs_cpu(dev, seed):
     a sampled row's first differing host decision was taken from logit
     rows that differ by at most NEAR_TIE between the two devices (the
     samplers are the same numpy code on both, so only the rows differ)."""
+    from repro_torch.core import prng
     from repro_torch.launch.serve import build_pair, to_device
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.batcher import BatchConfig
     from repro_torch.serving.engine import Engine, EngineConfig, SamplingParams
 
     t_cpu, d_cpu = build_pair(seed=seed, s_max=128, device="cpu")
@@ -1696,6 +1719,16 @@ def phase_card_vs_cpu(dev, seed):
         emit(phase="card_vs_cpu", engine=name,
              equal=f"{len(prompts) - len(ties)}/{len(prompts)}", divergences=ties)
         bad += [dict(t, engine=name) for t in ties if not t["near_tie"]]
+    # the legacy host-gather loop, two batch slots for the four requests
+    host_cfg = BatchConfig(max_batch=2, max_tokens=32, kv_path="host")
+    rows = [[o.tolist() for o in E.serve_batch(prng.PRNGKey(seed), t, d, prompts, host_cfg)[0]]
+            for t, d in ((t_gpu, d_gpu), (t_cpu, d_cpu))]
+    greedy = [SamplingParams(max_tokens=32)] * len(prompts)
+    ties = _divergences(t_cpu, prompts, greedy, rows[0], rows[1], None, None,
+                        [None] * len(prompts))
+    emit(phase="card_vs_cpu", engine="host_gather",
+         equal=f"{len(prompts) - len(ties)}/{len(prompts)}", divergences=ties)
+    bad += [dict(t, engine="host_gather") for t in ties if not t["near_tie"]]
     # the prefix cache on the reference's workload (tests/test_prefix_cache.py)
     # at page_size 8: the donor first (once per kind), then the followers, a
     # fork that copies on write, a full hit and a repeat (under mixed KV the
@@ -2359,6 +2392,167 @@ def _server_cli(timeout_s: float = 300.0):
     if status != 200 or health != 200 or got != want:
         raise AssertionError(f"server CLI: status {status}, /healthz {health}, "
                              f"tokens {got} against Engine.run {want}")
+
+
+# ---------------------------------------------------------------------------
+# Phases 19-20: the legacy host-gather loop and the quickstart's steps
+# ---------------------------------------------------------------------------
+
+
+def phase_host_path(dev, pair, fp_outs, main_report):
+    """The legacy host-gather loop on the card: ``serve_batch(...,
+    BatchConfig(max_batch=4, max_tokens=32, kv_path="host"))`` over the
+    main path's pair and requests.  Host pools; every round the whole
+    (n_layers, 4, s_max, kv heads, hd) K and V buffers of each model go up
+    and come back.  Every main-path kernel launches (the rotation once per
+    layer of each target forward), each row equals the main path's except
+    at a near-tie, the sinks saw every token, and the copy seconds are
+    counted.  Prints tokens/s beside the main path's, rounds, copy ms and
+    K/V bytes moved per round."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import _lib
+    from repro_torch.models import layers as L
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.batcher import BatchConfig
+    from repro_torch.serving.engine import SamplingParams
+
+    target, draft, prompts = pair
+    cfg = BatchConfig(max_batch=4, max_tokens=32, kv_path="host")
+    sinks = [[] for _ in prompts]
+    _lib.launches.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs, summary = E.serve_batch(prng.PRNGKey(SEED), target, draft, prompts, cfg,
+                                  sinks=[s.append for s in sinks])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_lib.launches)
+    outs = [o.tolist() for o in outs]
+    emitted = sum(len(o) for o in outs)
+    rounds = summary["rounds"]
+    # per round each model's K and V buffers go up whole and come back whole
+    per_round = 2 * sum(
+        2 * m.cfg.n_layers * cfg.max_batch * m.s_max * L.kv_store_heads(m.cfg) * m.cfg.hd
+        * m.cfg.tdtype.itemsize for m in (target, draft))
+    emit(phase="host_path", requests=len(outs), emitted=emitted, wall_s=wall,
+         tokens_per_s=emitted / wall, main_path_tokens_per_s=main_report["tokens_per_s"],
+         over_main_path=emitted / wall / main_report["tokens_per_s"], rounds=rounds,
+         steps=summary["steps"], acceptance_rate=summary["acceptance_rate"],
+         kv_copy_s=summary["kv_copy_s"], kv_copy_ms_per_round=summary["kv_copy_s"] * 1e3 / rounds,
+         kv_bytes_moved_per_round=per_round,
+         target_kv_bytes_per_row_per_round=2 * target.cfg.n_layers * target.s_max
+         * L.kv_store_heads(target.cfg) * target.cfg.hd * target.cfg.tdtype.itemsize,
+         copy_bytes_per_s=per_round * rounds / summary["kv_copy_s"], launches=launches)
+    missing = [k for k in MAIN_KERNELS if launches.get(k, 0) <= 0]
+    if missing:
+        raise AssertionError(f"host_path did not launch {missing}")
+    _check_rotations("host_path", launches, target.cfg.n_layers)
+    if sinks != outs or [len(o) for o in outs] != [cfg.max_tokens] * len(prompts):
+        raise AssertionError("host_path: a sink missed tokens or a request did not drain")
+    if summary["kv_path"] != "host" or not summary["kv_copy_s"] > 0.0:
+        raise AssertionError(f"host_path: summary {summary['kv_path']}, "
+                             f"kv_copy_s {summary['kv_copy_s']}")
+    _compare_decisions("host_path", target, prompts,
+                       [SamplingParams(max_tokens=cfg.max_tokens)] * len(prompts), outs, fp_outs,
+                       None, None, ["none"] * len(prompts))
+    return launches
+
+
+def phase_quickstart_path(dev, pair):
+    """examples/quickstart.py's steps through the port on the card: the
+    offline-quantized linear layer (``quantized_linear_apply``, the W4A8
+    kernel) at M = 32 on the target's (4096, 11008) and (11008, 4096)
+    weights with 3 outlier channels, plain and LRU-rotated (the R2
+    rotation kernel), each equal to the CPU plain version within rtol
+    1e-6, with its SQNR against the float product; kurtosis before and
+    after the rotation (it must fall: the tiled 11008 plan mixes an
+    outlier over two 256-wide blocks only, so by less than the exact 4096
+    plan); the draft's bits per weight; the
+    Markov LM at vocab 64 through ``sd_generate`` and ``apsd_generate`` on
+    the card (greedy equal to ``markov_greedy_decode``, a sampled run
+    replayed from its key identical); and ``fig6_table()`` on the host,
+    every row inside ``PAPER_BANDS``."""
+    from repro_torch.core import bvq, prng, toylm
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.core import quantization as q
+    from repro_torch.core import rotation as rot
+    from repro_torch.core.apsd import APSDConfig, apsd_generate
+    from repro_torch.core.speculative import SDConfig, sd_generate
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.launch.serve import PAIR_BVQ
+
+    _, draft, _ = pair
+    t0 = time.perf_counter()
+    _lib.launches.clear()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    bad = []
+    for k, n in ((4096, 11008), (11008, 4096)):
+        plan = rot.plan_rotation(k)
+        x = torch.randn(32, k, generator=g, device=dev)
+        x[:, [7, k // 3, k - 5]] *= 80.0
+        w = torch.randn(k, n, generator=g, device=dev) * 0.05
+        ref = (x.double() @ w.double()).float()
+        xr = ops.lru_rotate(x, plan)
+        wr = rot.rotate_weight_in(w, plan)
+        kurt = [float(rot.kurtosis(a).mean()) for a in (x, xr)]
+        arms = {}
+        for arm, (xa, wa) in (("plain", (x, w)), ("lru", (xr, wr))):
+            ql = q.quantize_linear_weights(wa)
+            y = q.quantized_linear_apply(xa, ql)
+            y_cpu = q.quantized_linear_apply(xa.cpu(), q.QuantizedLinear(ql.wq.cpu(), ql.sw.cpu()))
+            err = float((y.cpu() - y_cpu).abs().max())
+            close = bool(torch.allclose(y.cpu(), y_cpu, rtol=1e-6, atol=1e-6))
+            arms[arm] = {"sqnr_db": q.sqnr_db(ref, y), "max_abs_err_vs_cpu": err,
+                         "within_rtol_1e-6": close}
+            if not close:
+                bad.append(f"quantized_linear_apply {arm} ({k}, {n}): max err {err}")
+        emit(phase="quickstart_path_w4a8", shape=[32, k, n], plan=[plan.kind, plan.m, plan.k],
+             kurtosis_before=kurt[0], kurtosis_after=kurt[1], **arms)
+        if not kurt[1] < kurt[0]:
+            bad.append(f"kurtosis ({k}): {kurt[0]} -> {kurt[1]}, the rotation did not lower it")
+    bits = {name: bvq.bits_per_weight(PAIR_BVQ, lin["idx"].shape[1] * lin["cb"].shape[-1],
+                                      lin["cb"].shape[0] * lin["idx"].shape[-1])
+            for name, lin in draft.params["layers"][0].items() if "cb" in lin}
+    kt, kd = prng.split(prng.PRNGKey(1))
+    tp = toylm.random_transition_logits(kt, 64, sharpness=2.0)
+    dp = tp + np.float32(0.8) * prng.normal(kd, (64, 64))
+    tp_d, dp_d = (torch.from_numpy(a).to(dev) for a in (tp, dp))
+    lm_iface = toylm.make_markov_lm(max_len=512, device=dev)
+    prompt = torch.tensor([[3, 5]], dtype=torch.int32, device=dev)
+    want = toylm.markov_greedy_decode(tp, 5, 32).tolist()
+    markov = {}
+    for name, gen, cfg in (
+            ("sd", sd_generate, SDConfig(draft_len=4, temperature=0.0, max_tokens=32)),
+            ("apsd", apsd_generate, APSDConfig(short_dl=2, long_dl=6, temperature=0.0,
+                                               max_tokens=32)),
+            ("sd_sampled", sd_generate, SDConfig(draft_len=4, temperature=0.8, max_tokens=32)),
+            ("apsd_sampled", apsd_generate, APSDConfig(short_dl=2, long_dl=6, temperature=0.8,
+                                                       max_tokens=32))):
+        runs = [gen(prng.PRNGKey(2), lm_iface, tp_d, lm_iface, dp_d, prompt, cfg)
+                for _ in range(2)]
+        toks = [r[0].tolist() for r in runs]
+        markov[name] = {"acceptance": runs[0][1].accepted / max(runs[0][1].drafted, 1),
+                        "rounds": runs[0][1].rounds, "replay_identical": toks[0] == toks[1]}
+        if toks[0] != toks[1] or len(toks[0]) != 32:
+            bad.append(f"markov {name}: replay differs or short: {toks}")
+        if cfg.temperature == 0.0:
+            markov[name]["equal_to_greedy"] = toks[0] == want
+            if toks[0] != want:
+                bad.append(f"markov {name}: {toks[0]} against greedy {want}")
+    table = pm.fig6_table()
+    outside = [(row["pair"], key, row[key]) for row in table
+               for key, (lo, hi) in pm.PAPER_BANDS.items() if not lo <= row[key] <= hi]
+    launches = dict(_lib.launches)
+    emit(phase="quickstart_path", draft_bits_per_weight=bits, markov=markov,
+         fig6=[{k: row[k] for k in ("pair", "total_speedup", "tok_per_s", "energy_savings")}
+               for row in table], fig6_outside_bands=outside, launches=launches,
+         seconds=time.perf_counter() - t0)
+    bad += [f"fig6 {o} outside PAPER_BANDS" for o in outside]
+    bad += [f"quickstart_path did not launch {k}" for k in ("w4a8_matmul", "block_rotate")
+            if launches.get(k, 0) <= 0]
+    if bad:
+        raise AssertionError("quickstart_path:\n" + "\n".join(bad))
+    return launches
 
 
 def _paged_greedy(target, prompt, n):
@@ -3163,7 +3357,8 @@ def main(argv=None) -> int:
     phase_build()
     summary = phase_kernels(dev, SEED)
     launches = {}
-    launches["main_path"], pair, fp_outs = phase_main_path(dev, SEED)
+    main_report = {}
+    launches["main_path"], pair, fp_outs = phase_main_path(dev, SEED, main_report)
     launches["int8_path"], int8_outs = phase_int8_path(dev, pair, fp_outs)
     launches["tree_path"] = phase_tree_path(dev, pair, fp_outs, int8_outs)
     sampled_sps, sampled_outs, sampled_log = phase_sampled_path(dev, pair, fp_outs)
@@ -3183,6 +3378,11 @@ def main(argv=None) -> int:
     launches["server_path"] = phase_server_path(dev, pair, fp_outs, sampled_sps, sampled_outs,
                                                 sampled_log)
     del sampled_log
+    t_phase = time.perf_counter()
+    launches["host_path"] = phase_host_path(dev, pair, fp_outs, main_report)
+    launches["quickstart_path"] = phase_quickstart_path(dev, pair)
+    print(f"chip_smoke: host and quickstart paths {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     if args.profile:
         from repro_torch.serving.engine import EngineConfig, SamplingParams
 

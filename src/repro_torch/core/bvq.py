@@ -14,6 +14,7 @@ reference's step for step."""
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -26,6 +27,8 @@ __all__ = [
     "BVQWeight",
     "bvq_compress",
     "bvq_reconstruct",
+    "bvq_matmul_ref",
+    "bits_per_weight",
     "dequant_codebooks",
     "kmeans",
     "reconstruct_dense",
@@ -60,6 +63,16 @@ class BVQWeight:
     indices: torch.Tensor
     shape: Tuple[int, int]
     vec_dim: int
+
+
+def bits_per_weight(cfg: BVQConfig, k: int, n: int) -> float:
+    """Average storage bits per original weight element of a (k, n) weight:
+    indices, INT4 codebook entries and f32 block scales."""
+    nb = n // cfg.block_cols
+    index_bits = math.log2(cfg.codebook_size) / cfg.vec_dim
+    cb_bits = nb * cfg.codebook_size * cfg.vec_dim * cfg.codebook_bits / (k * n)
+    scale_bits = nb * 32 / (k * n)
+    return index_bits + cb_bits + scale_bits
 
 
 def _sq_dists(x: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -226,3 +239,9 @@ def reconstruct_dense(cb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def bvq_reconstruct(bw: BVQWeight) -> torch.Tensor:
     """Gather-decode the full (K, N) f32 weight."""
     return reconstruct_dense(dequant_codebooks(bw), bw.indices)
+
+
+def bvq_matmul_ref(x: torch.Tensor, bw: BVQWeight) -> torch.Tensor:
+    """y = x @ reconstruct(bw), in x's dtype: the plain version of the
+    BVQ matmul over a whole ``BVQWeight``."""
+    return x @ bvq_reconstruct(bw).to(x.dtype)

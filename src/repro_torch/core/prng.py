@@ -6,14 +6,15 @@ with its defaults (raw ``uint32[2]`` keys, the partitionable counter layout,
 Keys are ``np.uint32`` arrays of shape (2,).  ``PRNGKey``, ``split``,
 ``fold_in``, ``random_bits`` and ``uniform`` give JAX's bits exactly.
 ``normal`` takes JAX's uniform draw over (-1, 1) and XLA's float32
-inverse-error-function polynomial, its Horner steps as fused
-multiply-adds (as XLA's CPU code runs them); numpy's ``log1p`` may differ
-from XLA's by an ulp, so a value may differ in its last bits (in 1-2% of
-draws, by at most a few ulp).
-``gumbel`` and ``categorical`` take ``np.log``, which differs from XLA's
-``log`` by a few ulp on some inputs, so a Gumbel value may differ in its
-last bits and a categorical draw only where the two largest perturbed
-scores lie within those ulp of each other.
+inverse-error-function polynomial over XLA's CPU ``log1p`` (``_log1p32``:
+the Cephes rational near 0, else ``_log32``, the Cephes / Eigen
+polynomial), every multiply-add that XLA's CPU backend fuses computed as
+one fused multiply-add, so its draws equal JAX's on the CPU bit for bit.
+``gumbel`` and ``categorical`` take ``np.log`` (several times faster than
+``_log32`` on the host samplers' path), which differs from XLA's ``log``
+in the last bit on some inputs, so a Gumbel value may differ in its last
+bits and a categorical draw only where the two largest perturbed scores
+lie within those ulp of each other.
 
 The algorithm follows ``jax/_src/prng.py`` (``_threefry2x32_lowering``,
 ``threefry_seed``, ``_threefry_split_foldlike``, ``_threefry_fold_in``,
@@ -134,9 +135,71 @@ _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 
 
+def _fma32(a, b, c) -> np.ndarray:
+    """float32 a * b + c in one rounding: the product of two float32 values
+    is exact in float64, and the float64 sum rounds to the fused result
+    unless it lands on a float32 tie (not met on these polynomials' ranges)."""
+    return (np.float64(1.0) * np.asarray(a, np.float32) * np.asarray(b, np.float32)
+            + np.asarray(c, np.float32)).astype(np.float32)
+
+
+_LOG_P = (7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+          1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+          3.3333331174e-1)
+# Cephes log1p rational for |x| < sqrt(2) - 1, highest degree first
+_LOG1P_NUM = (4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+              6.5787325942061044846969e0, 2.9911919328553073277375e1,
+              6.0949667980987787057556e1, 5.7112963590585538103336e1,
+              2.0039553499201281259648e1)
+_LOG1P_DEN = (1.0, 1.5062909083469192043167e1, 8.3047565967967209469434e1,
+              2.2176239823732856465394e2, 3.0909872225312059774938e2,
+              2.1642788614495947685003e2, 6.0118660497603843919306e1)
+
+
+def _log32(v: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``log`` on the CPU: v = m * 2^e with m in [sqrt(1/2),
+    sqrt(2)), log(m) by the Cephes polynomial in m - 1, plus e * log(2) in
+    two parts; the multiply-adds fused where XLA's backend fuses them."""
+    v = np.asarray(v, np.float32)
+    f32 = np.float32
+    bits = np.maximum(v, f32(1.17549435e-38)).view(np.uint32)
+    e = ((bits >> np.uint32(23)).astype(np.int32) - 0x7F).astype(np.float32) + f32(1.0)
+    m = ((bits & np.uint32(0x807FFFFF)) | f32(0.5).view(np.uint32)).view(np.float32)
+    small = m < f32(0.707106781186547524)
+    x = (m - f32(1.0)) + np.where(small, m, f32(0.0))
+    e = e - np.where(small, f32(1.0), f32(0.0))
+    x2 = x * x
+    x3 = x2 * x
+    p = [f32(c) for c in _LOG_P]
+    y = _fma32(_fma32(p[0], x, p[1]), x, p[2])
+    y1 = _fma32(_fma32(p[3], x, p[4]), x, p[5])
+    y2 = _fma32(_fma32(p[6], x, p[7]), x, p[8])
+    y = _fma32(_fma32(y, x3, y1), x3, y2)
+    y = _fma32(y, x3, e * f32(-2.12194440e-4))
+    x = x - x2 * f32(0.5)  # exact product: fused or not, the same sum
+    out = (x + y) + e * f32(0.693359375)  # exact product again
+    out = np.where(v == f32(np.inf), v, out)
+    out = np.where(v == 0, f32(-np.inf), out)
+    return np.where((v < 0) | np.isnan(v), f32(np.nan), out).astype(np.float32)
+
+
+def _log1p32(x: np.ndarray) -> np.ndarray:
+    """XLA's float32 ``log1p`` on the CPU: the Cephes rational x - x^2/2 +
+    x^3 P(x)/Q(x) for |x| < sqrt(2) - 1, else ``_log32(1 + x)``."""
+    x = np.asarray(x, np.float32)
+    f32 = np.float32
+    num, den = np.zeros_like(x), np.zeros_like(x)
+    for a, b in zip(_LOG1P_NUM, _LOG1P_DEN):
+        num, den = _fma32(num, x, f32(a)), _fma32(den, x, f32(b))
+    x2 = x * x
+    near = ((x * x2) * (num / den) + f32(-0.5) * x2) + x  # -x^2/2 is exact
+    return np.where(np.abs(x) < f32(0.41421356237309504880), near,
+                    _log32(x + f32(1.0))).astype(np.float32)
+
+
 def _erfinv32(x: np.ndarray) -> np.ndarray:
     x = x.astype(np.float32)
-    w = -np.log1p(-x * x)
+    w = -_log1p32(-x * x)
     lt = w < np.float32(5.0)
     w = np.where(lt, w - np.float32(2.5), np.sqrt(np.maximum(w, np.float32(0))) - np.float32(3.0))
     p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))

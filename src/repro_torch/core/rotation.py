@@ -5,7 +5,10 @@ Every scheme composes orthonormal block rotations, so the overall R is
 exactly orthogonal and ``(x R)(R^T W) == x W``.  The plan search is pure
 Python and returns the same plans as the reference; the apply functions are
 the plain-torch versions (row-vector convention, y = x @ R) used offline to
-fold rotations into weights and as the oracle of kernels/fwht.py."""
+fold rotations into weights and as the oracle of kernels/fwht.py.  The
+analysis helpers follow the reference: the dense matrices
+(``block_hadamard``, ``rotation_matrix``, numpy float64), the add-op and
+adder-count proxies of the LRU and of a global rotation, and ``kurtosis``."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,6 +28,14 @@ __all__ = [
     "local_rotate",
     "local_rotate_transpose",
     "rotate_weight_in",
+    "block_hadamard",
+    "rotation_matrix",
+    "fwht",
+    "rotation_cost",
+    "rotation_area",
+    "global_rotation_cost",
+    "global_rotation_area",
+    "kurtosis",
 ]
 
 MAX_DEPTH = 6  # paper: RFA supports 2^1..2^6 FWHT
@@ -131,6 +142,77 @@ def plan_rotation(n: int, max_depth: int = MAX_DEPTH, max_npot: int = MAX_NPOT) 
     return RotationPlan(n=n, m=m, k=k, kind=kind)
 
 
+def rotation_cost(plan: RotationPlan) -> float:
+    """Total add-ops of the LRU rotation over all stages (per token) —
+    energy/latency proxy."""
+    per_ch = _stage_cost_per_channel(plan.m, plan.k)
+    if plan.kind == "exact":
+        return plan.n * per_ch
+    if plan.kind == "tiled":
+        return 2 * plan.n * per_ch
+    return 2 * plan.block * per_ch
+
+
+def rotation_area(plan: RotationPlan) -> float:
+    """Hardware-area proxy (adder count) of the LRU: one block-wide array
+    reused across blocks and across the two stages."""
+    return plan.block * _stage_cost_per_channel(plan.m, plan.k)
+
+
+def global_rotation_area(n: int) -> float:
+    """Area proxy of the baseline global rotation array: a full-width
+    depth-log2(n/m) FWHT cascaded with the dense npot H_m stage, m the
+    smallest multiple-of-4 Hadamard order containing odd(n)."""
+    odd = _odd_part(n)
+    if odd == 1:
+        m = 1
+    else:
+        m = odd if odd % 4 == 0 else odd * (4 if odd % 2 else 2)
+        while m % 4 != 0:
+            m *= 2
+    k = int(math.log2(n // m))
+    return n * _stage_cost_per_channel(m, k)
+
+
+def global_rotation_cost(n: int) -> float:
+    """Op-count per token of the global rotation (one full-dim stage)."""
+    return global_rotation_area(n)
+
+
+@functools.lru_cache(maxsize=None)
+def block_hadamard(m: int, k: int) -> np.ndarray:
+    """Orthonormal H_B = kron(H_m, H_{2^k}) / sqrt(B), B = m * 2**k, in
+    float64 (tests and small dims only)."""
+    hm = hadamard.hadamard_matrix(m).astype(np.float64)
+    h2 = hadamard.hadamard_matrix(1 << k).astype(np.float64)
+    hb = np.kron(hm, h2)
+    b = m * (1 << k)
+    return (hb / math.sqrt(b)).astype(np.float64)
+
+
+@functools.lru_cache(maxsize=None)
+def rotation_matrix(n: int, max_depth: int = MAX_DEPTH, max_npot: int = MAX_NPOT) -> np.ndarray:
+    """Dense n x n orthogonal matrix of the full LRU rotation, float64
+    (row-vector convention: y = x @ R)."""
+    plan = plan_rotation(n, max_depth, max_npot)
+    hb = block_hadamard(plan.m, plan.k)
+    b = plan.block
+    if plan.kind == "exact":
+        return hb
+    if plan.kind == "tiled":
+        nb = plan.num_blocks
+        stage1 = np.kron(np.eye(nb), hb)
+        shift = b // 2
+        perm = np.roll(np.eye(plan.n), -shift, axis=1)  # x @ perm rolls left
+        stage2 = perm @ np.kron(np.eye(nb), hb) @ perm.T
+        return stage1 @ stage2
+    up = np.eye(plan.n)
+    up[:b, :b] = hb
+    lo = np.eye(plan.n)
+    lo[plan.n - b:, plan.n - b:] = hb
+    return up @ lo
+
+
 def _fwht_sylvester(x: torch.Tensor, depth: int) -> torch.Tensor:
     """kron(I_m, H_{2^depth}) applied along the last axis (butterflies)."""
     n = x.shape[-1]
@@ -147,6 +229,19 @@ def _fwht_sylvester(x: torch.Tensor, depth: int) -> torch.Tensor:
         y = torch.stack([a, b], dim=-2)
         h *= 2
     return y.reshape(*lead, n)
+
+
+def fwht(x: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
+    """Unnormalized FWHT along the last axis, Sylvester order (the
+    reference's ``fwht_jnp``).  With ``depth`` the last axis is ``m *
+    2**depth`` and the transform acts within each contiguous 2**depth
+    group: the kron(I_m, H_{2^depth}) factor."""
+    n = x.shape[-1]
+    if depth is None:
+        depth = n.bit_length() - 1
+        if 1 << depth != n:
+            raise ValueError(f"a full FWHT needs a power-of-two length, got {n}")
+    return _fwht_sylvester(x, depth)
 
 
 def _apply_blocks(x: torch.Tensor, m: int, k: int, transpose: bool = False) -> torch.Tensor:
@@ -210,3 +305,13 @@ def rotate_weight_in(w: torch.Tensor, plan: RotationPlan) -> torch.Tensor:
     """Fold R into a weight along its input dim: (x @ R) @ (R^T w) == x @ w."""
     assert w.shape[0] == plan.n
     return local_rotate(w.T, plan).T
+
+
+def kurtosis(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Pearson kurtosis along ``axis`` (3 for a Gaussian), the outlier
+    metric, computed on x's device in x's dtype."""
+    mu = torch.mean(x, dim=axis, keepdim=True)
+    d = x - mu
+    m2 = torch.mean(d ** 2, dim=axis, keepdim=True)
+    m4 = torch.mean(d ** 4, dim=axis, keepdim=True)
+    return torch.squeeze(m4 / (m2 ** 2 + 1e-12), dim=axis)

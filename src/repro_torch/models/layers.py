@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.quantization import div_scalar
 from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.models.common import ModelConfig
 
@@ -270,7 +271,7 @@ def kv_quantize(x: torch.Tensor):
     scales (..., 1)).  Computed in float32; torch.round rounds half to
     even, as jnp.round does."""
     xf = x.float()
-    scale = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8) / 127.0
+    scale = div_scalar(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8), 127.0)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 

@@ -7,6 +7,7 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.quantization import div_scalar
 from repro_torch.core.tree import tree_leaves, tree_map, tree_unflatten
 
 __all__ = ["ErrorFeedbackState", "ef_init", "compress_grads_int8", "decompress_grads_int8"]
@@ -27,7 +28,7 @@ def compress_grads_int8(grads, ef: ErrorFeedbackState) -> Tuple[Any, Any, ErrorF
     even and clipped to [-127, 127]; the new residual is what that lost."""
     def one(g, r):
         gf = g.float() + r
-        scale = torch.clamp(torch.max(torch.abs(gf)) / 127.0, min=1e-12)
+        scale = torch.clamp(div_scalar(torch.max(torch.abs(gf)), 127.0), min=1e-12)
         q = torch.clamp(torch.round(gf / scale), -127, 127).to(torch.int8)
         return q, scale, gf - q.float() * scale
 

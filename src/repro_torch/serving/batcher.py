@@ -49,8 +49,8 @@ class BatchConfig:
     temperature: float = 0.0  # the wrapper serves greedy decoding only
     num_pages: Optional[int] = None  # page budget per pool (None: fit max_batch)
     model_wdos: bool = True  # price each round with the WDOS model (stats)
-    # "paged": device-resident pools; "host": the reference's legacy
-    # host-gather loop, not ported (serve_batch raises NotImplementedError)
+    # "paged": device-resident pools; "host": the legacy host-gather loop
+    # (serving/host_gather.py), the benchmark baseline
     kv_path: str = "paged"
 
     @property
@@ -175,7 +175,9 @@ class ContinuousBatcher:
             if self.slots[slot] is not None or not self.queue:
                 continue
             req = self.queue[0]
-            peak = req.peak_cache_len(self.cfg.spec_window)
+            # spec_window == max_dl for chain speculation; the legacy host
+            # loop's BatchConfig has only max_dl
+            peak = req.peak_cache_len(getattr(self.cfg, "spec_window", self.cfg.max_dl))
             match = pc.match(req.prompt, req.kv_kind) if pc is not None else None
             while True:
                 t_seq, d_seq = self._allocate_pair(peak, match)

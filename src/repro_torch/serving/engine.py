@@ -82,7 +82,9 @@ synchronizations and timed on the engine's clock (``_profiled``,
 ``profile_summary``).  None of it changes a token.
 
 The deprecated run-to-drain wrappers ``serve_sd``, ``serve_apsd`` and
-``serve_batch`` survive as thin wrappers over ``Engine`` (each warns once).
+``serve_batch`` survive as thin wrappers over ``Engine`` (each warns once);
+``serve_batch(kv_path="host")`` and ``serve_batch_host`` run the frozen
+legacy host-gather loop (serving/host_gather.py), the benchmark baseline.
 """
 from __future__ import annotations
 
@@ -146,6 +148,7 @@ __all__ = [
     "serve_sd",
     "serve_apsd",
     "serve_batch",
+    "serve_batch_host",
     "BatchConfig",
 ]
 
@@ -214,17 +217,22 @@ def _wdos_costs(mcfg: ModelConfig) -> Tuple[float, float]:
     return load, 0.25 * load
 
 
-def _pool_for(model: ServingModel, cfg: EngineConfig, peaks: Sequence[int]) -> PagedKVPool:
-    """Page allocator sized to hold `max_batch` worst-case requests, or the
+def _pool_for(model: ServingModel, cfg, peaks: Sequence[int],
+              alloc_storage: bool = False) -> PagedKVPool:
+    """Page pool sized to hold `max_batch` worst-case requests, or the
     explicit cfg.num_pages budget, or the pages cfg.pool_bytes buys in the
     bytes of the pool's storage kinds (an int8 page with its scales is
-    ~3.5x smaller than an f32 one); the KV bytes live in device tensors."""
+    ~3.5x smaller than an f32 one).  ``cfg`` is an ``EngineConfig`` or the
+    legacy host loop's ``BatchConfig`` (no byte budget, dense pages).  The
+    KV bytes live in device tensors, or with ``alloc_storage`` in the
+    pool's own host storage (serving/host_gather.py)."""
     mcfg = model.cfg
-    if cfg.pool_bytes is not None:
+    kv_quant = getattr(cfg, "kv_quant", "none")
+    if getattr(cfg, "pool_bytes", None) is not None:
         num_pages = num_pages_for_bytes(
             cfg.pool_bytes, n_layers=mcfg.n_layers, kv_heads=L.kv_store_heads(mcfg),
             head_dim=mcfg.hd, page_size=cfg.page_size, dtype=mcfg.tdtype,
-            kv_quant=cfg.kv_quant,
+            kv_quant=kv_quant,
         )
     elif cfg.num_pages is not None:
         num_pages = cfg.num_pages
@@ -238,9 +246,14 @@ def _pool_for(model: ServingModel, cfg: EngineConfig, peaks: Sequence[int]) -> P
         num_pages=num_pages,
         page_size=cfg.page_size,
         dtype=mcfg.tdtype,
-        alloc_storage=False,
-        kv_quant=cfg.kv_quant,
+        alloc_storage=alloc_storage,
+        kv_quant=kv_quant,
     )
+
+
+# the legacy host loop (serving/host_gather.py) calls the accept rule by
+# this name, as the reference's does
+_greedy_accept_host = speculative_accept_greedy_host
 
 
 def _make_paged_step(model: ServingModel):
@@ -1577,9 +1590,10 @@ class Engine:
         s["kv_quant"] = self.cfg.kv_quant
         s["spec_mode"] = self.cfg.spec_mode
         s["kv_bytes_per_token"] = {
-            "target": self._t_pool.bytes_per_token_by_kind(),
-            "draft": self._d_pool.bytes_per_token_by_kind(),
+            "target": float(self._t_pool.bytes_per_token()),
+            "draft": float(self._d_pool.bytes_per_token()),
         }
+        s["kv_copy_s"] = 0.0  # no host K/V copies exist on this path
         s["tree"] = {
             "nodes": self._m_tree_nodes.value(),
             "branches": self._m_tree_branches.value(),
@@ -1612,6 +1626,7 @@ def _empty_summary(cfg) -> dict:
         "wdos_utilization": {},
         "par_mode": getattr(cfg, "par_mode", "off"),
         "kv_path": getattr(cfg, "kv_path", "paged"),
+        "kv_copy_s": 0.0,
         "table_upload_s": 0.0,
     }
 
@@ -1686,14 +1701,13 @@ def serve_batch(
     Builds an Engine sized like the reference's closed-batch runtime (the
     pool fits the ``max_batch`` largest requests, the table width the
     batch's worst-case peak), adds every prompt and drains.
-    ``kv_path="host"`` (the reference's legacy host-gather loop) is not
-    ported."""
+    ``kv_path="host"`` selects the frozen legacy host-gather loop
+    (serving/host_gather.py), kept as the benchmark baseline."""
     warn_deprecated_once("serve_batch", "Engine.run(...)")
     if cfg.kv_path == "host":
-        raise NotImplementedError(
-            "kv_path='host' runs the reference's legacy loop (serving/host_gather.py, "
-            "serve_batch_host), which is not ported; use kv_path='paged'"
-        )
+        from repro_torch.serving.host_gather import serve_batch_host as _host_impl
+
+        return _host_impl(key, target, draft, prompts, cfg, sinks=sinks)
     if cfg.kv_path != "paged":
         raise ValueError(f"kv_path must be 'paged' or 'host', got {cfg.kv_path!r}")
     if cfg.temperature != 0.0:
@@ -1729,3 +1743,19 @@ def serve_batch(
     )
     eng = Engine(target, draft, ecfg, device=target.device)
     return eng.run(prompts_np, SamplingParams(max_tokens=cfg.max_tokens), sinks=sinks)
+
+
+def serve_batch_host(
+    key,
+    target: ServingModel,
+    draft: ServingModel,
+    prompts: Sequence[Any],
+    cfg: BatchConfig,
+    sinks: Optional[Sequence[Optional[Callable[[int], None]]]] = None,
+) -> Tuple[List[torch.Tensor], dict]:
+    """DEPRECATED: the legacy host-gather loop, kept only as the benchmark
+    baseline (serving/host_gather.py)."""
+    warn_deprecated_once("serve_batch_host", "Engine.run(...) (device-resident paged KV)")
+    from repro_torch.serving.host_gather import serve_batch_host as _host_impl
+
+    return _host_impl(key, target, draft, prompts, cfg, sinks=sinks)

@@ -19,9 +19,11 @@ single-request serving path into a multi-tenant runtime:
 Two storage modes:
 
 * ``alloc_storage=True`` (legacy / benchmark baseline): host-side numpy
-  arrays (layer-stacked, ``(n_layers, num_pages, page_size, kv_heads,
+  arrays, or CPU torch tensors for a torch dtype such as bfloat16
+  (layer-stacked, ``(n_layers, num_pages, page_size, kv_heads,
   head_dim)``); a consumer gathers a request's pages into a dense view and
-  scatters written spans back (``PagedSequence.append``/``gather_into``).
+  scatters written spans back (``PagedSequence.append``/``gather_into``,
+  serving/host_gather.py).
 * ``alloc_storage=False`` (device-resident serving): this object is pure
   allocator/bookkeeper — KV bytes live in torch device tensors built by
   ``device_pool_init`` and are written in place by the model forward
@@ -116,6 +118,14 @@ def kv_quantize_np(span: np.ndarray):
     s = s.astype(np.float32)
     q = np.clip(np.rint(span / s), -127, 127).astype(np.int8)
     return q, s
+
+
+def _is_torch_dtype(dtype) -> bool:
+    try:
+        np.dtype(dtype)
+    except TypeError:
+        return True
+    return False
 
 
 def _dtype_info(dtype) -> Tuple[int, str]:
@@ -245,9 +255,21 @@ class PagedKVPool:
                     "must pick 'none' or 'int8'"
                 )
             shape = (n_layers, num_pages, page_size, kv_heads, head_dim)
-            store_dt = np.int8 if kv_quant == "int8" else dtype
-            self.k = np.zeros(shape, store_dt)
-            self.v = np.zeros(shape, store_dt)
+            if _is_torch_dtype(dtype):
+                # a torch dtype (bfloat16 has no numpy dtype): CPU tensors
+                # of that dtype move the same bytes; dense pages only
+                if kv_quant != "none":
+                    raise NotImplementedError(
+                        "host storage of a torch dtype holds dense pages (kv_quant='none')"
+                    )
+                import torch  # deferred: the allocator stays importable without torch
+
+                self.k = torch.zeros(shape, dtype=dtype)
+                self.v = torch.zeros(shape, dtype=dtype)
+            else:
+                store_dt = np.int8 if kv_quant == "int8" else dtype
+                self.k = np.zeros(shape, store_dt)
+                self.v = np.zeros(shape, store_dt)
             if kv_quant == "int8":
                 sshape = shape[:-1] + (1,)
                 self.k_scale = np.zeros(sshape, np.float32)

@@ -1,7 +1,8 @@
 """The port's serving front end against the JAX package: the BPE tokenizer
 and the HTTP client helpers (both packages' copies), ``AsyncEngine``,
 ``CompletionServer``, the ``launch.serve`` CLI and the deprecated
-``serve_sd`` / ``serve_apsd`` / ``serve_batch`` wrappers.
+``serve_sd`` / ``serve_apsd`` / ``serve_batch`` wrappers (``serve_batch``
+also through the legacy host-gather loop, ``kv_path="host"``).
 
 The engine cases run the dense smoke pair (weights carried across from the
 JAX ``build_pair(quantize=False)``), and one async case the port's own
@@ -512,8 +513,14 @@ def test_deprecated_wrappers_match_jax(pairs):
     assert [g.tolist() for g in got] == [np.asarray(w).tolist() for w in want]
     assert sinks == [g.tolist() for g in got] and summary["requests"] == 3
     assert tengine.serve_batch(tkey, tt, td, [], BatchConfig())[0] == []
-    with pytest.raises(NotImplementedError, match="host_gather"):
-        tengine.serve_batch(tkey, tt, td, prompts, BatchConfig(kv_path="host"))
+    want, _ = jengine.serve_batch(jkey, jt, jd, prompts,
+                                  JaxBatchConfig(max_batch=2, page_size=8, max_tokens=7,
+                                                 kv_path="host"))
+    got, summary = tengine.serve_batch(tkey, tt, td, prompts,
+                                       BatchConfig(max_batch=2, page_size=8, max_tokens=7,
+                                                   kv_path="host"))
+    assert [g.tolist() for g in got] == [np.asarray(w).tolist() for w in want]
+    assert summary["kv_path"] == "host" and summary["requests"] == 3
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,6 @@ def test_port_imports_neither_jax_nor_reference():
     for name in ("models.ssm", "models.whisper", "models.convert", "optim.adamw",
                  "optim.schedule", "optim.compression", "data.pipeline", "checkpoint.store",
                  "runtime.fault_tolerance", "launch.mesh", "launch.steps", "launch.train",
-                 "core.tree"):
+                 "core.tree", "core.toylm", "core.perfmodel", "serving.host_gather"):
         assert f"repro_torch.{name}" in report["modules"], name
     assert report["leaked"] == []
