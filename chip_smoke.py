@@ -32,7 +32,11 @@ Phases, in order (any failure exits non-zero before the final line):
    (``_family_kernel_cases``): paged attention at G = 4 and 6 (8 kv heads)
    and Moonlight's 16 heads, the Qwen3-8B R2 plan (m = 12) at 1, 32 and
    128 tokens, w4a8 at the 151,936- and 163,840-wide heads and K = 12288,
-   bvq at the Qwen3-8B-width draft's weights.
+   bvq at the Qwen3-8B-width draft's weights.  Then K1 at Qwen3-8B's
+   shard shapes for tp 2 and 4 (``_shard_kernel_cases``): column shards
+   at N / tp, the head at vocab / tp, row shards (wo, w_down) at K / tp
+   in the int32 epilogue (``w4a8_matmul_int32``: exact against the plain
+   version) and scaled, at M = 4 and 256.
 3. The main path at full width: the paper pair (LLaMA2-7B widths, W4A8 +
    LRU target with all 32 layers, built layer by layer; LLaMA-68M widths,
    BVQ draft) served by ``Engine`` at ``EngineConfig()`` defaults, 4 greedy
@@ -194,8 +198,8 @@ Phases, in order (any failure exits non-zero before the final line):
    common prefix, first select different experts only at router
    near-ties (k-th against (k+1)-th router logit within ROUTER_NEAR_TIE
    at that layer and token, in both runs).
-27. Train path: ``launch.train.Trainer`` on mamba2-1.3b at full width and
-   depth (48 layers, d 2048, bf16, float32 moments, remat), batch 4 x 512
+27. Train path: ``launch.train.Trainer`` on mamba2-1.3b at full width,
+   24 of its 48 layers (d 2048, bf16, float32 moments, remat), batch 4 x 512
    tokens, 8 steps with a checkpoint at step 4: losses and grad norms
    finite, parameters moved; step ms, tokens/s, peak GB and the model
    FLOPs over the bf16 peak; a fresh Trainer restores step 4 and its
@@ -213,6 +217,28 @@ Phases, in order (any failure exits non-zero before the final line):
    decode logits within BF16_DECODE_FACTOR times the bf16 re-forward's
    distance from the float32 re-forward; card against CPU at smoke size.  Phases 27-30
    print their seconds.
+31-34. The mesh (``MESH_PHASES``: the three serving paths share one
+   (1, 2) world whose ranks run their jobs in turn after every one-device
+   run; training and the elastic run share a (2, 2) world, the restore a
+   (2, 1) one; the ranks share the card over gloo, after the kernels are
+   built; every path prints each rank's backend and transport,
+   collectives per decode step and peak memory, and frees everything): ``tp_path`` (Qwen3-8B W4A8 + LRU at full width
+   and depth on (1, 2) against one device: prefill 4 x 64, 32 greedy
+   steps; logits bit for bit, K1 scaled and int32 and K2 launched on
+   every rank, K2 once per layer of each forward), ``tp_bf16_path``
+   (Nemotron-4-15B bf16 on (1, 2), sequence sharding in the prefill;
+   prefill logits within a bound, rows at bf16 near-ties: 2 ulps of the
+   top logit), ``ep_path`` (the
+   repo's Moonlight with ``moe_impl="a2a"`` on (1, 2), 32 experts a rank,
+   nothing dropped: one bf16 layer against the dense combine, 8 layers in
+   float32 against it end to end (prefill logits within a bound), one W4A8 layer against the dense combine
+   on dequantized experts, and 8 W4A8 layers bit for bit the same function
+   on one rank), ``mesh_train_path`` (LLaMA-68M widths on (2, 2) with
+   ZeRO-1 and sequence sharding, 8 steps against one device, losses and
+   grad norms within bounds; a checkpoint
+   restored onto (1, 1) and (2, 1) bit for bit; an elastic run from 4
+   ranks to 2).  ``--cpu-dry-run`` runs the mesh phases at smoke size on
+   the CPU.
 
 Each path prints its tokens/s, rounds, target forwards per emitted token,
 device-to-host copies per round and, on a WDOS engine, its fused-slot
@@ -272,13 +298,16 @@ KERNELS = {
                                   "src/repro/kernels/paged_attn.py:175"),
     "decode_attention_int8": ("src/repro_torch/kernels/csrc/decode_attn.cu",
                               "src/repro/kernels/decode_attn.py:81"),
+    # K1's int32 epilogue: the row-parallel shards' accumulators
+    "w4a8_matmul_int32": ("src/repro_torch/kernels/csrc/w4a8_matmul.cu",
+                          "src/repro/kernels/w4a8_matmul.py:69"),
 }
 # the path whose run each kernel's launches are read from (counts zeroed
 # just before that path, read just after)
 PATH_OF = {"w4a8_matmul": "main_path", "block_rotate": "main_path", "bvq_matmul": "main_path",
            "paged_attention": "main_path", "paged_attention_int8": "int8_path",
            "paged_attention_tree": "tree_path", "paged_attention_int8_tree": "tree_path",
-           "decode_attention_int8": "main_path"}
+           "decode_attention_int8": "main_path", "w4a8_matmul_int32": "tp_path"}
 # kernels no path must launch: no serving path of the reference calls
 # decode_attention_int8, so only its kernel phase runs it; the summary
 # line still reads its (zero) count from the main path's counters
@@ -880,6 +909,7 @@ def phase_kernels(dev, seed):
                       f"full LLaMA2-7B cache B=4 S=4096 KVS=32 G=1 hd=128 length={length}",
                       lambda n=length: check_decode_int8(dev, timer, g, 4, 4096, 32, 128, n)))
     cases += _family_kernel_cases(dev, timer, g, mb, win, tw, tlens, long_lens)
+    cases += _shard_kernel_cases(dev, timer, g)
     summary, failed = {}, []
     for name, shape, run in cases:
         rec = run()
@@ -2976,9 +3006,13 @@ def _profile_step(path, tr, dev):
          top_device_ops=[[e.key, e.self_device_time_total / 1e3, e.count] for e in ops])
 
 
+TRAIN_LAYERS = 24  # train_path's depth: its 48 layers wrote and read a 14.5 GB checkpoint
+
+
 def phase_train_path(dev, profile=False):
-    """The Trainer on mamba2-1.3b at full width and depth (48 layers, d
-    2048, bf16, float32 moments, remat), batch 4 x 512 tokens, 8 steps, a
+    """The Trainer on mamba2-1.3b at full width, its depth cut to
+    TRAIN_LAYERS of 48 for the run's time limit (d 2048, bf16, float32
+    moments, remat), batch 4 x 512 tokens, 8 steps, a
     checkpoint at step 4: losses and grad norms finite, parameters moved;
     step ms (median of steps 1-7), tokens/s, peak GB, and the step's model
     FLOPs (6 N T; 8 N T with remat's second forward) over the bf16 peak.
@@ -2995,7 +3029,8 @@ def phase_train_path(dev, profile=False):
     from repro_torch.launch.train import Trainer
     from repro_torch.models.lm import param_count
 
-    cfg, seq, batch, steps, save_at = get_config("mamba2-1.3b"), 512, 4, 8, 4
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=TRAIN_LAYERS)
+    seq, batch, steps, save_at = 512, 4, 8, 4
     tmp = tempfile.mkdtemp(prefix="train_path_")
     try:
         free = shutil.disk_usage(tmp).free
@@ -3321,6 +3356,559 @@ def phase_ssm_families_path(dev):
         raise AssertionError(f"ssm_families_path: decode beyond its tolerance: {bad}")
 
 
+# ---------------------------------------------------------------------------
+# The sharded mesh (ranks sharing the card over gloo)
+# ---------------------------------------------------------------------------
+
+TP_PROMPT, TP_BATCH, TP_STEPS = 64, 4, 32  # tp paths: prefill 4 x 64, 32 greedy steps
+EP_LAYERS = 8  # ep_path depth: the (1, 1) reference and two half shards on one card
+EP_PROMPT, EP_STEPS = 32, 8
+MESH_TRAIN_STEPS, MESH_TRAIN_SAVE = 8, 4
+BF16_NEAR_TIE_ULPS = 2  # bf16 logits: a near-tie in units of the top logit's last place
+EP_BF16_RTOL = 2.0 ** -6  # bf16 a2a MoE layer against the dense combine: 4 ulps of the max
+# Sharded against one device where partial sums add in other orders, each bound about
+# four times the largest gap read on the H100 (PERF.md section 6, PR 23):
+TP_BF16_PREFILL_ATOL = 0.5  # Nemotron bf16 prefill logits on (1, 2): read 0.140625
+EP_PREFILL_ATOL = 2e-4  # Moonlight float32 prefill logits, a2a on (1, 2): read 3.9e-5
+MESH_LOSS_ATOL = 3e-3  # bf16 training losses, (2, 2) against (1, 1): read 7.2e-4
+MESH_NORM_RTOL = 3e-3  # and their grad norms, relative: read 7.5e-4
+W4A8_MOE_RTOL = 5e-2  # relative RMS of a W4A8 a2a MoE layer's output against the dense
+# combine on the dequantized experts: the a2a path quantizes the expert activations to
+# int8 (the reference's _moe_a2a_quant), the dense one multiplies bf16 activations
+
+
+def check_w4a8_shard(dev, timer, g, m, k, n, int32):
+    """K1 at one shard's shape: scaled, or its int32 epilogue (a row
+    shard's partial accumulators), against the plain version."""
+    from repro_torch.core import quantization as q
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.w4a8_matmul import prepack, w4a8_matmul, w4a8_matmul_int32
+
+    if not int32:
+        return check_w4a8(dev, timer, g, m, k, n)
+    x = torch.randn((m, k), generator=g, device=dev)
+    w = torch.randn((k, n), generator=g, device=dev) * 0.02
+    xq, _ = q.quantize_act_int8(x)
+    wq, sw = q.quantize_weight_int(w, bits=4, axis=0)
+    wp = q.pack_int4(wq, axis=0)
+    wpp = prepack(wp)
+    got = w4a8_matmul_int32(xq, wpp, n)
+    want = ref.w4a8_matmul_int32_ref(xq, wp)
+    w_deq = (wq.float() * sw).to(torch.bfloat16)
+    xb = x.to(torch.bfloat16)
+    bound, by = bound_ms(m * k + k * n / 2 + 4 * m * n, 2.0 * m * k * n, "int8")
+    return dict(
+        max_abs_err=float((got - want).abs().max()), tol=0.0,
+        repeat_bitwise_equal=bool(torch.equal(got, w4a8_matmul_int32(xq, wpp, n))),
+        kernel_ms=timer.ms(lambda: w4a8_matmul_int32(xq, wpp, n)),
+        plain_ms=timer.ms(lambda: ref.w4a8_matmul_int32_ref(xq, wp)),
+        library_ms=timer.ms(lambda: torch.matmul(xb, w_deq)),
+        bound_ms=bound, bound_by=by,
+    )
+
+
+def _shard_kernel_cases(dev, timer, g):
+    """K1 at Qwen3-8B's shard shapes for tp 2 and 4, decode (M = 4) and
+    the 4 x 64 prefill (M = 256): column shards at N / tp (scaled), row
+    shards at K / tp (the int32 epilogue the path runs, and the scaled one
+    beside it), the head at vocab / tp."""
+    d, qkv, kv, f, vocab = 4096, 4096, 1024, 12288, 151936
+    cases = []
+    for tp in (2, 4):
+        for m, what in ((TP_BATCH, "decode"), (TP_BATCH * TP_PROMPT, "prefill")):
+            for name, k, n, rows in (("wq", d, qkv // tp, False), ("wk/wv", d, kv // tp, False),
+                                     ("w_gate/w_up", d, f // tp, False),
+                                     ("head", d, vocab // tp, False),
+                                     ("wo", qkv // tp, d, True), ("w_down", f // tp, d, True)):
+                # a row shard's int32 epilogue, timed beside the scaled one at its shape
+                for int32 in ((False, True) if rows else (False,)):
+                    kern = "w4a8_matmul_int32" if int32 else "w4a8_matmul"
+                    cases.append((kern, f"Qwen3-8B tp={tp} {name} M={m} K={k} N={n} "
+                                        f"({what} shard)",
+                                  lambda m=m, k=k, n=n, int32=int32:
+                                  check_w4a8_shard(dev, timer, g, m, k, n, int32)))
+    return cases
+
+
+def _rank_note(mesh):
+    return {"rank": mesh.rank, "coords": mesh.coords, "backend": mesh.backend,
+            "transport": mesh.transport, "device": str(mesh.device)}
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _peak_gb(dev):
+    return torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+
+
+def _tp_decode(mesh, arch, quantize, n_layers=None, moe_fields=None, dev="cuda", smoke=False):
+    """One rank's (or, without a mesh, one device's) run of a tp path: the
+    target built from SEED (the config's smoke version with ``smoke``, a
+    CPU dry run of the phase; cut to ``n_layers``), a prefill of TP_BATCH
+    x TP_PROMPT seeded tokens and TP_STEPS greedy steps over the dense
+    cache, timed; logits of the prefill's last position and of every step,
+    the tokens, the kernels' launches, the collectives per decode step and
+    the peak memory."""
+    from repro_torch import configs
+    from repro_torch.kernels import _lib
+    from repro_torch.launch.serve import build_sharded_target
+    from repro_torch.models import lm
+    from repro_torch.serving import quantized_lm as qlm
+
+    dev = mesh.device if mesh is not None else torch.device(dev)
+    cfg = (configs.get_smoke if smoke else configs.get_config)(arch)
+    if n_layers and not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    if moe_fields:
+        cfg = dataclasses.replace(cfg, **moe_fields)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)  # the allocator's stats exist once CUDA is up
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = build_sharded_target(cfg, mesh, quantize=quantize, seed=SEED, device=dev)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    if quantize:
+        fwd = (qlm.apply_quantized_moe_lm if cfg.n_experts else qlm.apply_quantized_lm)
+    else:
+        fwd = lm.apply_lm
+    rng = np.random.RandomState(SEED)
+    tokens = torch.as_tensor(rng.randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT)), device=dev)
+    tokens = lm.local_rows(tokens, mesh)
+    steps = TP_STEPS if not cfg.n_experts else EP_STEPS
+    cache = lm.init_cache(cfg, TP_BATCH, TP_PROMPT + steps + 1, dev, mesh=mesh)
+    _lib.launches.clear()
+    comm = mesh.comm if mesh is not None else None
+    with torch.no_grad():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = fwd(params, cfg, tokens, cache=cache, mesh=mesh)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        prefill_logits = logits[:, -1].float().cpu()
+        step_logits, toks = [prefill_logits], [logits[:, -1].argmax(-1)]
+        if comm is not None:
+            comm.clear()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            logits, cache = fwd(params, cfg, toks[-1][:, None], cache=cache, mesh=mesh)
+            step_logits.append(logits[:, -1].float().cpu())
+            toks.append(logits[:, -1].argmax(-1))
+        _sync(dev)
+        decode_s = time.perf_counter() - t0
+    return {
+        "mesh": None if mesh is None else dict(mesh.shape), "note": None if mesh is None
+        else _rank_note(mesh), "keep": (mesh is None or mesh.coords["model"] == 0),
+        "config": cfg.name, "layers": cfg.n_layers, "build_s": build_s,
+        "prefill_ms": prefill_s * 1e3, "step_ms": decode_s * 1e3 / steps,
+        "logits": torch.stack(step_logits, 1), "tokens": torch.stack(toks, 1).cpu(),
+        "launches": dict(_lib.launches), "forwards": steps + 1,
+        "comm_per_step": ({k: v / steps for k, v in comm.items()} if comm is not None else {}),
+        "peak_gb": _peak_gb(dev),
+    }
+
+
+def _free(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _margins(logits):
+    top2 = torch.topk(logits, 2, dim=-1).values
+    return top2[..., 0] - top2[..., 1]
+
+
+def _bf16_ulp(v: float) -> float:
+    return 2.0 ** (math.floor(math.log2(abs(v))) - 7) if v else 0.0
+
+
+def _hold_rows(phase, got, want, bf16=False):
+    """Tokens of every row equal, except a row whose first differing step
+    is a near-tie of the reference: top-2 margin <= NEAR_TIE, or, for bf16
+    logits (whose sharded partial sums round in another order),
+    <= BF16_NEAR_TIE_ULPS units in the last place of the top logit."""
+    rows, bad = [], []
+    margins = _margins(want["logits"])
+    for b in range(want["tokens"].shape[0]):
+        diff = (got["tokens"][b] != want["tokens"][b]).nonzero()
+        first = int(diff[0]) if len(diff) else None
+        margin = float(margins[b, first]) if first is not None else None
+        tie = NEAR_TIE
+        if first is not None and bf16:
+            top = float(want["logits"][b, first].max())
+            tie = max(NEAR_TIE, BF16_NEAR_TIE_ULPS * _bf16_ulp(top))
+        rows.append({"row": b, "equal": first is None, "first_diff": first, "top2_margin": margin,
+                     "near_tie": tie})
+        if first is not None and margin > tie:
+            bad.append(rows[-1])
+    emit(phase=f"{phase}_rows", rows=rows,
+         equal=f"{sum(r['equal'] for r in rows)}/{len(rows)}")
+    if bad:
+        raise AssertionError(f"{phase}: rows differ beyond a near-tie: {bad}")
+
+
+def _mesh_report(phase, one, ranks, prefill_atol=None):
+    """Prints the sharded run against the one-device run; with
+    ``prefill_atol`` fails where their prefill logits (computed from the
+    same tokens, before any row can diverge) differ by more.  The logits of
+    each row up to its first differing token are printed, not gated."""
+    kept = [r for r in ranks if r["keep"]]
+    got, want = kept[0], one
+    pre = 0.0
+    for b in range(want["tokens"].shape[0]):
+        diff = (got["tokens"][b] != want["tokens"][b]).nonzero()
+        last = int(diff[0]) + 1 if len(diff) else want["tokens"].shape[1]
+        pre = max(pre, float((got["logits"][b, :last] - want["logits"][b, :last]).abs().max()))
+    prefill_diff = float((got["logits"][:, 0] - want["logits"][:, 0]).abs().max())
+    emit(phase=phase, config=one["config"], layers=one["layers"],
+         mesh=ranks[0]["mesh"], ranks=[r["note"] for r in ranks],
+         step_ms={"1x1": one["step_ms"], "sharded": [r["step_ms"] for r in ranks]},
+         prefill_ms={"1x1": one["prefill_ms"], "sharded": [r["prefill_ms"] for r in ranks]},
+         build_s={"1x1": one["build_s"], "sharded": [r["build_s"] for r in ranks]},
+         peak_gb={"1x1": one["peak_gb"], "sharded": [r["peak_gb"] for r in ranks]},
+         collectives_per_decode_step=[r["comm_per_step"] for r in ranks],
+         launches=[r["launches"] for r in ranks], forwards=one["forwards"],
+         max_abs_logit_diff=float((kept[0]["logits"] - one["logits"]).abs().max()),
+         prefill_max_abs_logit_diff=prefill_diff, prefill_atol=prefill_atol,
+         prefill_max_abs_logit=float(want["logits"][:, 0].abs().max()),
+         pre_divergence_max_abs_logit_diff=pre,
+         logits_bitwise_equal=bool(torch.equal(kept[0]["logits"], one["logits"])))
+    if prefill_atol is not None and not prefill_diff <= prefill_atol:
+        raise AssertionError(f"{phase}: the prefill logits differ from one device's by "
+                             f"{prefill_diff} > {prefill_atol}")
+    return kept[0]
+
+
+def _rank_jobs(mesh, jobs):
+    """Each (fn, args) of ``jobs`` on this rank in turn, the card freed
+    between them: one world serves several phases (starting a world of
+    ranks on the shared card took 10-25 s)."""
+    import gc
+
+    out = []
+    for fn, args in jobs:
+        out.append(fn(mesh, *args))
+        gc.collect()
+        _free(mesh.device)
+    return out
+
+
+def _one_device(dev, runs, smoke):
+    """The one-device run of each sharded decode job, freed in turn before
+    the ranks start."""
+    import gc
+
+    from repro_torch.launch import mesh as M
+
+    out = {}
+    for name, (arch, quantize, layers, fields, one_rank) in runs.items():
+        base = M.make_mesh(dev) if one_rank else None
+        out[name] = _tp_decode(base, arch, quantize, layers, fields, dev=dev, smoke=smoke)
+        gc.collect()
+        _free(dev)
+    return out
+
+
+def phase_sharded_serving(dev, smoke=False):
+    """``tp_path``, ``tp_bf16_path`` and ``ep_path`` (below) in one (1, 2)
+    world: every one-device run first, then the ranks run the sharded
+    jobs in turn, then each path's checks."""
+    from repro_torch import configs
+    from repro_torch.launch import mesh as M
+
+    moon = configs.get_config("moonshot-v1-16b-a3b")
+    ep = {"moe_impl": "a2a", "capacity_factor": moon.n_experts / moon.top_k}
+    runs = {"tp_path": ("qwen3-8b", True, None, None, False),
+            "tp_bf16_path": ("nemotron-4-15b", False, None, None, False),
+            "ep_path": ("moonshot-v1-16b-a3b", False, EP_LAYERS, ep | {"dtype": "float32"}, False),
+            # the W4A8 MoE against the same a2a function on a one-rank mesh
+            "ep_w4a8_path": ("moonshot-v1-16b-a3b", True, EP_LAYERS, ep, True)}
+    t0 = time.perf_counter()
+    one = _one_device(dev, runs, smoke)
+    print(f"chip_smoke: sharded serving, one-device runs {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    jobs = [(_ep_layer, (dev.type, smoke, ep))] + [
+        (_tp_decode, (arch, quantize, layers, fields, dev.type, smoke))
+        for arch, quantize, layers, fields, _ in runs.values()]
+    t0 = time.perf_counter()
+    res = M.spawn(_rank_jobs, 1, 2, device=dev.type, args=(jobs,))
+    print(f"chip_smoke: sharded serving, the (1, 2) world {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    ranks = {name: [r[i + 1] for r in res] for i, name in enumerate(runs)}
+    out = check_tp_path(dev, one["tp_path"], ranks["tp_path"])
+    out.update(check_tp_bf16_path(one["tp_bf16_path"], ranks["tp_bf16_path"]))
+    out.update(check_ep_path(dev, [r[0] for r in res], one, ranks))
+    return out
+
+
+def check_tp_path(dev, one, ranks):
+    """Qwen3-8B W4A8 + LRU at full width and depth, one device and then on
+    mesh (1, 2) (two ranks sharing the card over gloo): prefill 4 x 64 and
+    32 greedy steps over the dense cache.  The sharded logits must equal
+    the one-device run's bit for bit and so the tokens; K1 (scaled on the
+    column shards, int32 on the row shards) and K2 launch on every rank, K2
+    once per layer of each forward."""
+    got = _mesh_report("tp_path", one, ranks)
+    for r in ranks if dev.type == "cuda" else ():  # the plain versions count nothing
+        n = r["launches"]
+        need = {"w4a8_matmul", "w4a8_matmul_int32", "block_rotate"}
+        if not need <= {k for k, v in n.items() if v}:
+            raise AssertionError(f"tp_path: rank {r['note']['rank']} launched {n}")
+        if n["block_rotate"] != r["layers"] * r["forwards"]:
+            raise AssertionError(f"tp_path: {n['block_rotate']} rotations for "
+                                 f"{r['layers']} layers x {r['forwards']} forwards")
+    if not torch.equal(got["logits"], one["logits"]):
+        raise AssertionError("tp_path: the (1, 2) logits differ from one device's: "
+                             f"max {float((got['logits'] - one['logits']).abs().max())}")
+    _hold_rows("tp_path", got, one)
+    return {"tp_path": ranks[0]["launches"]}
+
+
+def check_tp_bf16_path(one, ranks):
+    """Nemotron-4-15B in bf16 (G = 6, squared ReLU, 256,000-wide vocab) at
+    full width and depth, one device and then on mesh (1, 2), Megatron
+    sequence sharding in the prefill: tokens equal except at a near-tie
+    (``_hold_rows`` with the bf16 rule: the row-parallel linears' bf16
+    partial sums add in another order, which moves a logit by an ulp), and
+    the prefill logits within TP_BF16_PREFILL_ATOL of one device's."""
+    got = _mesh_report("tp_bf16_path", one, ranks, TP_BF16_PREFILL_ATOL)
+    _no_quantized("tp_bf16_path", ranks[0]["launches"])
+    _hold_rows("tp_bf16_path", got, one, bf16=True)
+    return {"tp_bf16_path": ranks[0]["launches"]}
+
+
+def _ep_layer(mesh, dev, smoke, fields):
+    """One Moonlight MoE layer on this rank: the whole layer made from SEED
+    on every rank (bf16), TP_BATCH x TP_PROMPT seeded hidden states, and on
+    the same inputs (every rank routes every token) the one-device dense
+    combine against the all-to-all over the rank's experts, in bf16 and
+    with the experts packed int4 (the dense combine on the dequantized
+    experts against ``_moe_a2a_quant``: int8 slots through K1)."""
+    from repro_torch import configs
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    from repro_torch.serving import quantized_lm as qlm
+
+    cfg = dataclasses.replace((configs.get_smoke if smoke else configs.get_config)(
+        "moonshot-v1-16b-a3b"), **fields)
+    gen = torch.Generator(device=mesh.device).manual_seed(SEED)
+    moe = lm.init_layer(gen, cfg, mesh.device)["moe"]
+    x = torch.randn((TP_BATCH, TP_PROMPT, cfg.d_model), generator=gen,
+                    device=mesh.device).to(cfg.tdtype)
+    specs = {"layers": [{"moe": L.moe_specs(cfg, mesh.tp)}]}
+    names = ("w_gate", "w_up", "w_down")
+    out = {"note": _rank_note(mesh)}
+    with torch.no_grad():
+        packed = {k: qlm._quant_pack_experts(moe[k]) for k in names}
+        dense = L.moe_apply_dense(moe, x, cfg).float()
+        dense_q = L.moe_apply_dense(dict({k: qlm._dequant_experts(packed[k], x.dtype)
+                                          for k in names}, router=moe["router"]), x, cfg).float()
+        shard = lm.shard_params({"layers": [{"moe": moe}]}, specs, mesh, cfg)["layers"][0]["moe"]
+        shard_q = dict({k: qlm._shard_experts(packed[k], k, cfg, mesh) for k in names},
+                       router=moe["router"])
+        del moe, packed
+        for name, fn, p, want in (("bf16", L.moe_apply_a2a, shard, dense),
+                                  ("w4a8", qlm._moe_a2a_quant, shard_q, dense_q)):
+            mesh.comm.clear()
+            _sync(mesh.device)
+            t0 = time.perf_counter()
+            got = fn(p, x, cfg, L.Shard(mesh)).float()
+            _sync(mesh.device)
+            out[name] = {"a2a_ms": (time.perf_counter() - t0) * 1e3, "comm": dict(mesh.comm),
+                         "max_abs": float((got - want).abs().max()),
+                         "dense_max": float(want.abs().max()),
+                         "rel_rms": float((got - want).pow(2).mean().sqrt()
+                                          / want.pow(2).mean().sqrt())}
+    out["experts_per_rank"] = shard["w_gate"].shape[0]
+    return out
+
+
+def check_ep_path(dev, layer, one, ranks):
+    """The repo's Moonlight config (64 experts, top-6) with
+    ``moe_impl="a2a"`` on mesh (1, 2), 32 experts a rank, the capacity
+    factor raised to E / k so no slot drops.  (1) One MoE layer, the
+    all-to-all against the dense combine on the same hidden states: in
+    bf16 within EP_BF16_RTOL of the output's largest magnitude (the expert
+    GEMMs run on other row counts, so their bf16 outputs round apart);
+    with int4 experts (``_moe_a2a_quant``, K1 once per local expert on its
+    (tp * cap, d) int8 slots) against the dense combine on the dequantized
+    experts, relative RMS within W4A8_MOE_RTOL (the int8 activations).
+    (2) EP_LAYERS layers at full width in float32 (the same config and
+    seed): a prefill and 8 greedy steps, rows held to the one-device dense
+    combine (near-tie rule), prefill logits within EP_PREFILL_ATOL; in bf16 the GEMMs' other rounding reaches the
+    router, whose k-th and (k+1)-th logits among 64 experts sit within a
+    bf16 ulp of each other often enough to flip experts.  (3) The W4A8 MoE
+    forward (bf16 activations) at EP_LAYERS layers on (1, 2) against the
+    same function on a one-rank mesh (the all-to-all with every expert
+    local): logits bit for bit, K1 launched."""
+    emit(phase="ep_layer", ranks=[r["note"] for r in layer],
+         experts_per_rank=layer[0]["experts_per_rank"],
+         bf16=[r["bf16"] for r in layer], w4a8=[r["w4a8"] for r in layer],
+         bf16_tol=EP_BF16_RTOL, w4a8_tol=W4A8_MOE_RTOL)
+    for r in layer:
+        if not r["bf16"]["max_abs"] <= EP_BF16_RTOL * r["bf16"]["dense_max"]:
+            raise AssertionError(f"ep_path: the bf16 a2a layer misses the dense combine: {r}")
+        if not r["w4a8"]["rel_rms"] <= W4A8_MOE_RTOL:
+            raise AssertionError(f"ep_path: the W4A8 a2a layer misses its dense combine: {r}")
+    out = {}
+    for phase, quantize in (("ep_path", False), ("ep_w4a8_path", True)):
+        got = _mesh_report(phase, one[phase], ranks[phase], None if quantize else EP_PREFILL_ATOL)
+        out[phase] = ranks[phase][0]["launches"]
+        if not quantize:
+            _no_quantized(phase, out[phase])
+            _hold_rows(phase, got, one[phase])
+            continue
+        if dev.type == "cuda" and not out[phase].get("w4a8_matmul"):
+            raise AssertionError(f"{phase}: the expert kernel did not launch: {out[phase]}")
+        if not torch.equal(got["logits"], one[phase]["logits"]):
+            raise AssertionError(f"{phase}: the (1, 2) logits differ from one rank's: max "
+                                 f"{float((got['logits'] - one[phase]['logits']).abs().max())}")
+        _hold_rows(phase, got, one[phase])
+    return out
+
+
+def _train_cfg(smoke):
+    from repro_torch.configs.paper_pair import DLM, DLM_SMOKE
+
+    return (DLM_SMOKE, 16) if smoke else (DLM, 256)
+
+
+def _train_rank(mesh, ckpt_dir, steps, save_at, restore, dev="cuda", smoke=False):
+    """Trainer steps of the paper draft at LLaMA-68M widths on this rank
+    (or one device): losses, grad norms, and with ``restore`` the restored
+    params gathered whole."""
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch.train import Trainer
+
+    dev = mesh.device if mesh is not None else torch.device(dev)
+    cfg, seq = _train_cfg(smoke)
+    tr = Trainer(cfg, mesh, seq_len=seq, global_batch=8, ckpt_dir=ckpt_dir, seed=SEED,
+                 device=dev)
+    if restore:
+        tr.restore()
+        params, _, _ = tr.full_state()
+        return {"step": tr.step, "params": [t.cpu() for t in tree_leaves(params)]}
+    hist, times = [], []
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        m = tr.train_step()
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+        times.append(time.perf_counter() - t0)
+        if ckpt_dir is not None and tr.step == save_at:
+            tr.save(tr.step)
+        tr.step += 1
+    if tr.ckpt is not None:
+        tr.ckpt.wait()
+    if mesh is not None:
+        mesh.barrier()
+    return {"hist": hist, "step_ms": float(np.median(times[1:])) * 1e3,  # steps after the first
+            "note": None if mesh is None else _rank_note(mesh),
+            "zero1_moment": None if mesh is None else
+            list(tr.opt_state["mu"]["layers"][0]["mlp"]["w_up"].shape),
+            "peak_gb": _peak_gb(dev)}
+
+
+def _elastic_rank(mesh, ckpt_dir, fail_at, steps, smoke=False):
+    from repro_torch.launch.train import elastic_trainer
+    from repro_torch.runtime import FaultToleranceConfig
+
+    cfg, seq = _train_cfg(smoke)
+    ticks = iter([None] * fail_at + [1] + [None] * 100)
+    et = elastic_trainer(cfg, mesh, FaultToleranceConfig(ckpt_dir=ckpt_dir, ckpt_every=2),
+                         model=mesh.shape["model"], failure_source=lambda: next(ticks),
+                         seq_len=seq, global_batch=8, seed=SEED, device=mesh.device)
+    hist = et.run(steps)
+    return None if hist is None else {"hist": hist, "rank": mesh.rank}
+
+
+def _train_and_elastic_rank(mesh, ckpt_dir, elastic_dir, smoke):
+    """The (2, 2) training run, then the elastic run, in one world."""
+    import gc
+
+    train = _train_rank(mesh, ckpt_dir, MESH_TRAIN_STEPS, MESH_TRAIN_SAVE, False,
+                        mesh.device.type, smoke)
+    gc.collect()
+    _free(mesh.device)
+    return {"train": train, "elastic": _elastic_rank(mesh, elastic_dir, 5, MESH_TRAIN_STEPS,
+                                                     smoke)}
+
+
+def phase_mesh_train_path(dev, smoke=False):
+    """The paper draft at LLaMA-68M widths (bf16, float32 moments), batch 8
+    x 256: 8 Trainer steps on mesh (2, 2) with ZeRO-1 and sequence
+    sharding against the one-device run (losses within MESH_LOSS_ATOL, every
+    rank's grad norms within MESH_NORM_RTOL), a
+    checkpoint saved on (2, 2) at step 4 and restored onto (1, 1) and
+    (2, 1) with every parameter bit for bit the saved one, and an elastic
+    run from 4 ranks (2 hosts x 2) that loses a host at tick 5 and resumes
+    on 2 ranks from the step-4 checkpoint: its losses up to the failure
+    equal the (2, 2) run's bit for bit, and every step's within
+    MESH_LOSS_ATOL of the one-device run."""
+    import tempfile
+
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.launch import mesh as M
+    from repro_torch.models.convert import from_reference
+
+    cfg, _ = _train_cfg(smoke)
+    kind = dev.type
+    one = _train_rank(None, None, MESH_TRAIN_STEPS, None, False, kind, smoke)
+    with tempfile.TemporaryDirectory() as d, tempfile.TemporaryDirectory() as d2:
+        both = M.spawn(_train_and_elastic_rank, 2, 2, device=kind, args=(d, d2, smoke))
+        ranks, elastic = [b["train"] for b in both], [b["elastic"] for b in both]
+        _, saved, _ = load_checkpoint(d, MESH_TRAIN_SAVE, device="cpu")
+        want = tree_leaves(from_reference(saved["params"], cfg))
+        onto_one = _train_rank(None, d, 0, None, True, kind, smoke)
+        onto_21 = M.spawn(_train_rank, 2, 1, device=kind, args=(d, 0, None, True, kind, smoke))
+    losses = [h[0] for h in ranks[0]["hist"]]
+    one_losses = [h[0] for h in one["hist"]]
+    grad_norms_one = [h[1] for h in one["hist"]]
+    bitwise = {"1x1": all(torch.equal(a.cpu(), b) for a, b in zip(onto_one["params"], want)),
+               "2x1": all(all(torch.equal(a, b) for a, b in zip(r["params"], want))
+                          for r in onto_21)}
+    survivors = [e for e in elastic if e is not None]
+    ehist = survivors[0]["hist"]
+    events = [h["event"] for h in ehist]
+    esteps = [(h["step"], h["loss"], h["n_hosts"]) for h in ehist if h["event"] == "step"]
+    before = [l for s, l, n in esteps if n == 2]
+    emit(phase="mesh_train_path", config=cfg.name, mesh={"data": 2, "model": 2},
+         ranks=[r["note"] for r in ranks], losses_2x2=losses, losses_1x1=one_losses,
+         grad_norms_2x2=[h[1] for h in ranks[0]["hist"]],
+         grad_norms_1x1=[h[1] for h in one["hist"]], loss_atol=MESH_LOSS_ATOL,
+         norm_rtol=MESH_NORM_RTOL,
+         step_ms={"1x1": one["step_ms"], "2x2": [r["step_ms"] for r in ranks]},
+         peak_gb={"1x1": one["peak_gb"], "2x2": [r["peak_gb"] for r in ranks]},
+         zero1_moment_w_up=ranks[0]["zero1_moment"], restored_step=onto_one["step"],
+         restored_bitwise=bitwise, elastic_events=events, elastic_steps=esteps,
+         elastic_survivors=len(survivors))
+    if any(abs(a - b) > MESH_LOSS_ATOL for a, b in zip(losses, one_losses)):
+        raise AssertionError(f"mesh_train_path: losses {losses} vs {one_losses}")
+    for r in ranks:
+        norms = [h[1] for h in r["hist"]]
+        if any(abs(a - b) > MESH_NORM_RTOL * abs(b) for a, b in zip(norms, grad_norms_one)):
+            raise AssertionError(f"mesh_train_path: grad norms {norms} vs {grad_norms_one}")
+    if not all(bitwise.values()) or onto_one["step"] != MESH_TRAIN_SAVE + 1:
+        raise AssertionError(f"mesh_train_path: restored parameters {bitwise}")
+    if len(survivors) != 2 or "restart" not in events or esteps[-1][2] != 1:
+        raise AssertionError(f"mesh_train_path: elastic events {events} {esteps}")
+    if before != losses[:len(before)]:
+        raise AssertionError(f"mesh_train_path: elastic losses {before} vs {losses}")
+    if any(abs(l - one_losses[s]) > MESH_LOSS_ATOL for s, l, _ in esteps):
+        raise AssertionError(f"mesh_train_path: elastic losses {esteps} vs {one_losses}")
+    return {"mesh_train_path": {}}
+
+
+MESH_PHASES = {"sharded_serving": phase_sharded_serving,
+               "mesh_train_path": phase_mesh_train_path}
+
+
 def _tensors(tree):
     if isinstance(tree, dict):
         return [t for v in tree.values() for t in _tensors(v)]
@@ -3337,7 +3925,14 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="profile a few rounds of ten of the paths "
                          "(torch.profiler)")
+    ap.add_argument("--cpu-dry-run", action="store_true",
+                    help="the mesh phases at smoke size on the CPU (no card, no build; "
+                         "checks the phases' own logic), no result line")
     args = ap.parse_args(argv)
+    if args.cpu_dry_run:
+        for phase in MESH_PHASES.values():
+            phase(torch.device("cpu"), smoke=True)
+        return 0
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is false)", file=sys.stderr)
@@ -3415,6 +4010,12 @@ def main(argv=None) -> int:
         print(f"chip_smoke: {phase.__name__[6:]} {time.perf_counter() - t_phase:.1f} s",
               flush=True)
     print(f"chip_smoke: training and family phases {time.perf_counter() - t_train:.1f} s")
+    t_mesh = time.perf_counter()
+    for name, phase in MESH_PHASES.items():
+        t_phase = time.perf_counter()
+        launches.update(phase(dev))
+        print(f"chip_smoke: {name} {time.perf_counter() - t_phase:.1f} s", flush=True)
+    print(f"chip_smoke: mesh phases {time.perf_counter() - t_mesh:.1f} s")
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f} s on {smi}")
     print(json.dumps({"kernels": [
         {

@@ -19,7 +19,14 @@ reference.
 ``AsyncCheckpointer.save`` copies every leaf to host memory on the calling
 thread (so later updates of device tensors cannot leak into it) and
 writes the npz on a worker thread, with at most ``max_pending`` saves in
-flight."""
+flight.
+
+On a mesh, ``save_checkpoint(..., mesh=, specs=)`` gathers every leaf
+whole over the axes its spec names (a collective on every rank) and rank 0
+writes it, so the files are the reference's full arrays;
+``load_checkpoint(..., mesh=, specs=)`` restores onto any mesh by cutting
+each leaf to the rank's block (specs in the checkpoint's own layout, e.g.
+``models.convert.specs_to_reference``)."""
 from __future__ import annotations
 
 import json
@@ -87,9 +94,53 @@ def _to_savable(v) -> Tuple[np.ndarray, str]:
     return a, name
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None) -> str:
+def _spec_paths(specs) -> Dict[str, Any]:
+    """path -> spec tuple (a spec is a leaf, unlike a tree's tuples)."""
+    flat = {}
+
+    def rec(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                rec(node[k], path + [str(k)])
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                rec(v, path + [str(i)])
+        else:
+            flat[_SEP.join(path)] = tuple(node)
+
+    rec(specs, [])
+    return flat
+
+
+def _leaf_specs(flat: Dict[str, Any], specs) -> Dict[str, Any]:
+    """path -> spec for every leaf of ``flat``; a leaf without a spec, or a
+    spec without a leaf, raises (a shard must never pass for a whole array)."""
+    flat_s = _spec_paths(specs)
+    if set(flat_s) != set(flat):
+        raise ValueError(f"the specs do not match the tree: leaves without a spec "
+                         f"{sorted(set(flat) - set(flat_s))}, specs without a leaf "
+                         f"{sorted(set(flat_s) - set(flat))}")
+    return flat_s
+
+
+def _with_specs(tree, specs, fn):
+    flat = _flatten_with_paths(tree)
+    flat_s = _leaf_specs(flat, specs)
+    flat = {k: fn(v, flat_s[k]) for k, v in flat.items()}
+    return _unflatten_from_paths(_tree_skeleton(tree), flat)
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree, extra: Optional[dict] = None, mesh=None,
+                    specs=None) -> Optional[str]:
     """Synchronous save of a tree of tensors or arrays: npz + manifest,
-    published atomically.  Returns the step directory."""
+    published atomically.  Returns the step directory.  With a mesh the
+    leaves are rank blocks under ``specs`` (one for every leaf): gathered
+    whole on every rank, written by rank 0 (None elsewhere)."""
+    if mesh is not None and mesh.size > 1:
+        from repro_torch.models.lm import unshard_leaf
+        tree = _with_specs(tree, specs, lambda v, sp: v if not sp else unshard_leaf(v, sp, mesh))
+        if mesh.rank != 0:
+            return None
     d = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = d + ".tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -116,10 +167,12 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, device="cuda"
-                    ) -> Tuple[int, Any, dict]:
+def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, device="cuda", mesh=None,
+                    specs=None) -> Tuple[int, Any, dict]:
     """(step, tree of tensors on ``device``, extra) of ``step`` (the latest
-    when None).  Leaves are stored whole, so any device takes them."""
+    when None).  Leaves are stored whole, so any device takes them; with
+    a mesh and ``specs`` (one for every leaf) each leaf is cut to the
+    rank's block (the reference's resharding restore)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -129,6 +182,10 @@ def load_checkpoint(ckpt_dir: str, step: Optional[int] = None, device="cuda"
         manifest = json.load(f)
     with np.load(os.path.join(d, "shard_host0.npz")) as z:
         flat = {k: from_numpy(z[k], manifest["dtypes"][k], device) for k in z.files}
+    if mesh is not None and specs is not None:
+        from repro_torch.models.lm import shard_leaf
+        flat_s = _leaf_specs(flat, specs)
+        flat = {k: shard_leaf(v, flat_s[k], mesh) if flat_s[k] else v for k, v in flat.items()}
     return step, _unflatten_from_paths(manifest["tree"], flat), manifest.get("extra", {})
 
 

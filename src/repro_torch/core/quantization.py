@@ -57,10 +57,16 @@ def _absmax_scale(x: torch.Tensor, axis: Axis, qmax: int) -> torch.Tensor:
     return torch.clamp(s, min=1e-8)
 
 
-def quantize_act_int8(x: torch.Tensor, axis: int = -1) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Dynamic per-token symmetric INT8: returns (q int8, scale f32)."""
+def quantize_act_int8(x: torch.Tensor, axis: int = -1, amax: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dynamic per-token symmetric INT8: returns (q int8, scale f32).
+    ``amax`` (keepdim, float32) replaces x's own absolute maximum: a
+    row-parallel shard quantizes with the maximum over the whole row."""
     xf = x.float()
-    s = _absmax_scale(xf, axis, INT8_QMAX)
+    if amax is None:
+        s = _absmax_scale(xf, axis, INT8_QMAX)
+    else:
+        s = torch.clamp(div_scalar(amax, INT8_QMAX), min=1e-8)
     q = torch.clamp(torch.round(xf / s), -INT8_QMAX, INT8_QMAX)
     return q.to(torch.int8), s
 

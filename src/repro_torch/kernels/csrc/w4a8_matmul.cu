@@ -38,6 +38,9 @@
 //    launch.  Int32 sums are exact: deterministic.
 //  * The epilogue multiplies (float(acc) * sx) * sw in that order, as the
 //    reference does, so results equal the plain version bit for bit.
+//  * With sx == nullptr the epilogue stores the int32 accumulators as they
+//    are (out is then int32): a row-parallel shard's partial sums, which
+//    the ranks add exactly before one scaling in the order above.
 #include "common.cuh"
 
 namespace {
@@ -195,8 +198,12 @@ w4a8_mma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ wpp,
     for (int j = 0; j < 4; ++j) {
       const int m = m0 + (mt0 + mt) * 8 + 2 * t + (j & 1);
       const int nn = n + (j >> 1) * 8;
-      if (mt < n_my && m < M && nn < N)
-        out[(size_t)m * N + nn] = (static_cast<float>(acc[mt][j]) * sx[m]) * sw[nn];
+      if (mt < n_my && m < M && nn < N) {
+        if (sx == nullptr)
+          reinterpret_cast<int*>(out)[(size_t)m * N + nn] = acc[mt][j];
+        else
+          out[(size_t)m * N + nn] = (static_cast<float>(acc[mt][j]) * sx[m]) * sw[nn];
+      }
     }
 }
 
@@ -218,7 +225,8 @@ int launch(bool x16, const int8_t* xq, const int8_t* wpp, const float* sx, const
 
 // xq (M, K) int8 with K % 4 == 0; wpp the prepacked weight (n16, nk64, 512)
 // int8 with nk64 even (K padded to a multiple of 128 with zeros); sx (M, 1)
-// and sw (1, N) f32; out (M, N) f32.  mt in {1, 2, 4, 8, 16} token tiles of
+// and sw (1, N) f32; out (M, N) f32, or, with sx and sw null, (M, N) int32
+// accumulators.  mt in {1, 2, 4, 8, 16} token tiles of
 // 8 per pass; ksplit > 1 needs ws (passes * 64-channel tiles * ksplit * mt *
 // 128 * 4 int32) and cnt (a zeroed int32 counter per (pass, 64-channel tile)).
 extern "C" int repro_w4a8_matmul(const int8_t* xq, const int8_t* wpp, const float* sx,

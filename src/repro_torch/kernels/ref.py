@@ -20,6 +20,7 @@ __all__ = [
     "block_rotate_ref",
     "rotate_plan_ref",
     "w4a8_matmul_ref2",
+    "w4a8_matmul_int32_ref",
     "bvq_matmul_ref2",
     "gather_pages_ref",
     "paged_attn_ref",
@@ -47,6 +48,12 @@ def w4a8_matmul_ref2(xq, wp, sx, sw) -> torch.Tensor:
     w = unpack_int4(wp, axis=0).to(torch.float64)
     acc = xq.to(torch.float64) @ w
     return acc.to(torch.float32) * sx * sw
+
+
+def w4a8_matmul_int32_ref(xq, wp) -> torch.Tensor:
+    """Plain version of kernels.w4a8_matmul.w4a8_matmul_int32: the exact
+    integer product (float64 holds it) as int32."""
+    return (xq.to(torch.float64) @ unpack_int4(wp, axis=0).to(torch.float64)).to(torch.int32)
 
 
 def bvq_matmul_ref2(x: torch.Tensor, cb: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -10,6 +10,11 @@ of 128 and N of 16; smaller or ragged weights are zero-padded to that).
 reference packs it (``core.quantization.pack_int4``), reordered on the fly,
 or the 3-D prepacked one.  The model's weights are prepacked, so the
 serving path reorders nothing.
+
+``w4a8_matmul_int32`` is the same kernel with its unscaled epilogue: the
+int32 accumulators xq @ unpack_int4(wp), which a row-parallel shard's
+ranks sum exactly before one scaling (``serving/quantized_lm._qlinear_rows``).
+Its launches are counted as "w4a8_matmul_int32".
 """
 from __future__ import annotations
 
@@ -19,9 +24,9 @@ import torch
 
 from repro_torch.core.quantization import pack_int4, unpack_int4
 from repro_torch.kernels import _lib
-from repro_torch.kernels.ref import w4a8_matmul_ref2
+from repro_torch.kernels.ref import w4a8_matmul_int32_ref, w4a8_matmul_ref2
 
-__all__ = ["w4a8_matmul", "prepack", "unprepack", "plan"]
+__all__ = ["w4a8_matmul", "w4a8_matmul_int32", "prepack", "unprepack", "plan"]
 
 _K_ALIGN = 128  # K values per pipeline stage of the kernel
 _N_ALIGN = 16  # channels per MMA tile (one warp)
@@ -85,35 +90,53 @@ def w4a8_matmul(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
     xq (M, K) int8; wp either (K/2, N) int8 nibble-packed along K (low
     nibble = element 2i) or its ``prepack``; sx (M, 1) f32; sw (1, N) f32
     -> (M, N) f32."""
-    m, k = xq.shape
+    k = xq.shape[1]
     n = sw.shape[-1]
     if xq.device.type == "cpu":
         return w4a8_matmul_ref2(xq, unprepack(wp, k, n) if wp.dim() == 3 else wp, sx, sw)
-    dev = _lib.require_cuda("w4a8_matmul", xq, wp, sx, sw)
+    return _launch("w4a8_matmul", xq, wp, n, sx, sw)
+
+
+def w4a8_matmul_int32(xq: torch.Tensor, wp: torch.Tensor, n: int) -> torch.Tensor:
+    """acc = xq @ unpack_int4(wp) as int32 (M, N), the kernel's unscaled
+    epilogue; wp as in ``w4a8_matmul`` for a weight of N columns."""
+    k = xq.shape[1]
+    if xq.device.type == "cpu":
+        return w4a8_matmul_int32_ref(xq, unprepack(wp, k, n) if wp.dim() == 3 else wp)
+    return _launch("w4a8_matmul_int32", xq, wp, n, None, None)
+
+
+def _launch(name: str, xq, wp, n: int, sx, sw) -> torch.Tensor:
+    m, k = xq.shape
+    scaled = sx is not None
+    dev = _lib.require_cuda(name, *(t for t in (xq, wp, sx, sw) if t is not None))
     if xq.dtype != torch.int8 or wp.dtype != torch.int8:
-        raise TypeError("w4a8_matmul: xq and wp must be int8")
-    if sx.dtype != torch.float32 or sw.dtype != torch.float32:
-        raise TypeError("w4a8_matmul: scales must be float32")
+        raise TypeError(f"{name}: xq and wp must be int8")
+    if scaled and (sx.dtype != torch.float32 or sw.dtype != torch.float32):
+        raise TypeError(f"{name}: scales must be float32")
     if wp.dim() == 2:
         if wp.shape != (k // 2, n):
-            raise ValueError(f"w4a8_matmul: shapes {xq.shape} {wp.shape} {sw.shape}")
+            raise ValueError(f"{name}: shapes {xq.shape} {wp.shape} N={n}")
         wp = prepack(wp)
     kp, np_ = _pad(k, n)
-    if wp.shape != (np_ // 16, kp // 64, 512) or sx.shape != (m, 1) or sw.shape != (1, n):
-        raise ValueError(f"w4a8_matmul: shapes {xq.shape} {wp.shape} {sx.shape} {sw.shape}")
+    if wp.shape != (np_ // 16, kp // 64, 512) or (scaled and (
+            sx.shape != (m, 1) or sw.shape != (1, n))):
+        raise ValueError(f"{name}: shapes {xq.shape} {wp.shape} N={n}"
+                         + (f" {sx.shape} {sw.shape}" if scaled else ""))
     if k % 4 or xq.data_ptr() % 4:
-        raise ValueError("w4a8_matmul: needs K % 4 == 0 and 4-byte aligned activations")
+        raise ValueError(f"{name}: needs K % 4 == 0 and 4-byte aligned activations")
     p = plan(m, k, n, _lib.sm_count(dev))
-    out = torch.empty((m, n), dtype=torch.float32, device=dev)
+    out = torch.empty((m, n), dtype=torch.float32 if scaled else torch.int32, device=dev)
     ws = cnt = None
     if p.ksplit > 1:
         ws = _lib.scratch(dev, "w4a8_ws", _lib.split_k_elems(p), torch.int32)
         cnt = _lib.scratch(dev, "w4a8_cnt", p.passes * p.ctas, torch.int32)
     err = _lib.lib().repro_w4a8_matmul(
-        xq.data_ptr(), wp.data_ptr(), sx.data_ptr(), sw.data_ptr(), out.data_ptr(),
+        xq.data_ptr(), wp.data_ptr(), sx.data_ptr() if scaled else None,
+        sw.data_ptr() if scaled else None, out.data_ptr(),
         ws.data_ptr() if ws is not None else None, cnt.data_ptr() if cnt is not None else None,
         m, k, n, np_ // 16, kp // 64, p.mt, p.ksplit, p.stages_per_split, _lib.stream_ptr(dev),
     )
-    _lib.check(err, "w4a8_matmul")
-    _lib.launches["w4a8_matmul"] += 1
+    _lib.check(err, name)
+    _lib.launches[name] += 1
     return out

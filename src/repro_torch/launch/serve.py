@@ -32,11 +32,12 @@ from repro_torch.core import prng
 from repro_torch.core.apsd import APSDConfig
 from repro_torch.core.speculative import SDConfig
 from repro_torch.models import lm
+from repro_torch.models.common import Family
 from repro_torch.serving import quantized_lm as qlm
 from repro_torch.serving.engine import ServingModel, make_interface, serve_apsd, serve_sd
 
 __all__ = ["PAIR_BVQ", "build_pair", "build_paper_pair", "build_arch_pair", "greedy_reference",
-           "main", "to_device"]
+           "main", "to_device", "build_sharded_target"]
 
 # the draft's compression settings (as in the reference's build_pair)
 PAIR_BVQ = bvq_mod.BVQConfig(
@@ -100,6 +101,37 @@ def build_paper_pair(seed: int = 0, s_max: int = 256, quantize: bool = True,
     the target made one layer at a time: quantized as it is made, or kept
     in bf16 with ``quantize=False`` (6.7 B parameters, ~13.5 GB)."""
     return _layerwise_pair(TLM, DLM, seed, s_max, quantize, device)
+
+
+def build_sharded_target(cfg, mesh=None, quantize: bool = True, seed: int = 0, device="cuda"):
+    """This rank's shard of a target made one layer at a time from ``seed``
+    (the draws of ``build_arch_pair``'s target, so a mesh of one rank, or
+    None, gives its weights): W4A8 + LRU (``quantize``, the dense
+    family's SwiGLU blocks; a MoE config gets the W4A8 MoE form) with each
+    layer quantized whole and cut to the rank's blocks, or the model dtype
+    cut by ``lm.param_specs``.  Each full layer is freed once cut."""
+    gen = _generator(device, seed)
+    emb = lm.init_embed(gen, cfg, device)
+    sharded = mesh is not None and mesh.size > 1
+    if quantize and cfg.family is Family.MOE:
+        params = qlm.quantize_moe_lm(dict(emb, layers=[]), cfg, mesh)
+        params["layers"] = [qlm.quantize_moe_layer(lm.init_layer(gen, cfg, device), cfg, mesh)
+                            for _ in range(cfg.n_layers)]
+        return params
+    if quantize:
+        params = qlm.quantize_embed(emb["embed"], emb["final_norm"], cfg, mesh)
+        params["layers"] = [qlm.quantize_layer(lm.init_layer(gen, cfg, device), cfg, mesh)
+                            for _ in range(cfg.n_layers)]
+        return params
+    if not sharded:
+        return dict(emb, layers=[lm.init_layer(gen, cfg, device) for _ in range(cfg.n_layers)])
+    specs = lm.param_specs(cfg, mesh.tp)
+    params = lm.shard_params(dict(emb, layers=[]), dict(specs, layers=[]), mesh, cfg)
+    params["layers"] = [
+        lm.shard_params({"layers": [lm.init_layer(gen, cfg, device)]},
+                        {"layers": specs["layers"][:1]}, mesh, cfg)["layers"][0]
+        for _ in range(cfg.n_layers)]
+    return params
 
 
 def build_arch_pair(arch: str, seed: int = 0, s_max: int = 256, quantize: bool = True,

@@ -27,7 +27,7 @@ from repro_torch.models.common import Family, ModelConfig
 Params = Dict[str, Any]
 
 __all__ = ["to_reference", "from_reference", "as_tensor", "fold_expert_split",
-           "params_from_numpy", "optim_state_from_numpy"]
+           "params_from_numpy", "optim_state_from_numpy", "specs_to_reference"]
 
 # leaves the reference keeps in float32 whatever the model dtype
 _F32_LEAVES = ("A_log", "D", "dt_bias", "router")
@@ -73,6 +73,26 @@ def to_reference(tree: Params, cfg: ModelConfig) -> Params:
             layers = [_stack(group) for group in layers]
         out[key] = _stack(layers)
     return out
+
+
+def specs_to_reference(specs: Params, cfg: ModelConfig) -> Params:
+    """A spec tree in the port's per-layer layout (``lm.param_specs``,
+    ``optimizer_specs``' moments) in the reference's stacked layout: one
+    spec per stacked leaf, the layer axis first and unsharded."""
+    out = dict(specs)
+    for key in _stacked_keys(cfg):
+        layers = specs.get(key)
+        if not layers:
+            out.pop(key, None)
+            continue
+        out[key] = _prepend(layers[0])
+    return out
+
+
+def _prepend(spec):
+    if isinstance(spec, dict):
+        return {k: _prepend(v) for k, v in spec.items()}
+    return (None,) + tuple(spec)
 
 
 def from_reference(tree: Params, cfg: ModelConfig) -> Params:

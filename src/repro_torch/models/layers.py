@@ -16,7 +16,23 @@ jnp in the reference.  The dense blocks' linears are plain torch matmuls
 kernel.  The MoE block runs the reference's single-device dense combine
 (``moe_apply_dense``: every token through every expert, gated by the
 softmax of its top-k router logits) as batched torch products over the
-expert axis, in the same fixed row blocks."""
+expert axis, in the same fixed row blocks.
+
+On a mesh (``launch/mesh.DeviceMesh``, one process per rank) every block
+takes its rank's shard of the parameters (``*_specs`` give the layout, the
+reference's ``PartitionSpec`` trees as plain tuples) and a ``Shard``
+context: q heads, the FFN's inner dim, experts and the vocabulary split
+over ``model``; column-parallel ``wq`` / ``w_gate`` / ``w_up`` take the
+replicated (or, under Megatron sequence sharding, all-gathered) input,
+row-parallel ``wo`` / ``w_down`` end in an all-reduce (or a
+reduce-scatter onto the sequence shards).  GQA with fewer kv heads than
+ranks repeats them to ``kv_store_heads`` virtual heads, so each rank
+attends its own heads with no collective; a head count the model axis
+does not divide runs attention replicated over ``model``.  ``fsdp=True``
+shards the non-TP weight axis over ``data`` and gathers it before use.
+The collectives carry their Megatron backward pairs, so training runs
+through the same code.  ``moe_apply_a2a`` is the GShard expert-parallel
+dispatch over the ``model`` group's all-to-all."""
 from __future__ import annotations
 
 import dataclasses
@@ -29,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantization import div_scalar
 from repro_torch.kernels.paged_attn import paged_attention
+from repro_torch.launch import mesh as M
 from repro_torch.models.common import ModelConfig
 
 __all__ = [
@@ -38,6 +55,21 @@ __all__ = [
     "rope",
     "silu_mul",
     "kv_store_heads",
+    "attn_tp_enabled",
+    "pick_batch_axes",
+    "moe_ff_split",
+    "Shard",
+    "rmsnorm_spec",
+    "attention_specs",
+    "mlp_specs",
+    "moe_specs",
+    "embed_specs",
+    "moe_apply_a2a",
+    "moe_dispatch_a2a",
+    "moe_capacity",
+    "topk_dispatch",
+    "embed_lookup",
+    "virtual_heads",
     "linear",
     "attention_init",
     "attention_apply",
@@ -112,11 +144,145 @@ def silu_mul(g: torch.Tensor, u: torch.Tensor, dtype: torch.dtype) -> torch.Tens
     return F.silu(g.float()).to(dtype) * u
 
 
-def kv_store_heads(cfg: ModelConfig) -> int:
-    """KV heads the cache stores.  The reference replicates kv heads only
-    under tensor parallelism (its ``_repeat_kv``); on the port's single
-    device it stores exactly ``n_kv`` and the repeat is the identity."""
-    return cfg.n_kv
+def attn_tp_enabled(cfg: ModelConfig, tp: int) -> bool:
+    """Attention heads split over ``model``: tp > 1 and divides n_heads."""
+    return cfg.n_heads % tp == 0 and tp > 1
+
+
+def kv_store_heads(cfg: ModelConfig, tp: int = 1) -> int:
+    """KV heads the cache stores over the whole model axis (the reference's
+    rule): ``n_kv`` unless attention is tensor-parallel, then n_kv * rep
+    virtual heads, rep = tp // gcd(n_kv, tp), so every rank holds whole
+    heads (``tp=1``: exactly ``n_kv``)."""
+    if not attn_tp_enabled(cfg, tp):
+        return cfg.n_kv
+    return cfg.n_kv * (tp // math.gcd(cfg.n_kv, tp))
+
+
+def pick_batch_axes(mesh, batch: int):
+    """The largest prefix of ("pod", "data") whose size product divides
+    ``batch`` (one name, a tuple, or None: the batch is replicated over
+    ``data``, as long-context decode's batch of 1 is)."""
+    axes = ("pod", "data") if "pod" in mesh.shape else ("data",)
+    chosen, prod = [], 1
+    for a in axes:
+        if batch % (prod * mesh.shape[a]) == 0:
+            chosen.append(a)
+            prod *= mesh.shape[a]
+    if not chosen:
+        return None
+    return chosen[0] if len(chosen) == 1 else tuple(chosen)
+
+
+def moe_ff_split(cfg: ModelConfig, tp: int) -> int:
+    """Ways each expert's FFN columns split when experts are fewer than the
+    model axis (the reference's rule: the (expert x slice) grid covers the
+    axis exactly)."""
+    e = cfg.n_experts
+    if tp <= e:
+        if e % tp:
+            raise ValueError(f"{e} experts do not split over {tp} ranks")
+        return 1
+    if tp % e:
+        raise ValueError(f"{tp} ranks do not split {e} experts")
+    return tp // e
+
+
+# ---------------------------------------------------------------------------
+# Sharding: spec trees and the per-block context
+# ---------------------------------------------------------------------------
+
+
+def _fs(cfg: ModelConfig):
+    return "data" if cfg.fsdp else None
+
+
+def rmsnorm_spec() -> dict:
+    return {"g": (None,)}
+
+
+def attention_specs(cfg: ModelConfig, tp: int) -> dict:
+    """The reference's ``attention_init`` specs: q heads (and wo's) over
+    ``model`` when attention is tensor-parallel, wk / wv replicated (their
+    heads are repeated to virtual heads on use), the d_model axis over
+    ``data`` under FSDP."""
+    h = "model" if attn_tp_enabled(cfg, tp) else None
+    fs = _fs(cfg)
+    out = {"wq": (fs, h, None), "wk": (fs, None, None), "wv": (fs, None, None),
+           "wo": (h, None, fs)}
+    if cfg.qk_norm:
+        out["q_norm"] = (None,)
+        out["k_norm"] = (None,)
+    return out
+
+
+def mlp_specs(cfg: ModelConfig) -> dict:
+    fs = _fs(cfg)
+    out = {"w_up": (fs, "model"), "w_down": ("model", fs)}
+    if cfg.act == "swiglu":
+        out["w_gate"] = (fs, "model")
+    return out
+
+
+def moe_specs(cfg: ModelConfig, tp: int) -> dict:
+    """Experts over ``model`` (the (E * split) stack the reference stores
+    when experts are fewer than ranks), the router replicated."""
+    fs = _fs(cfg)
+    return {"router": (None, None), "w_gate": ("model", fs, None),
+            "w_up": ("model", fs, None), "w_down": ("model", None, fs)}
+
+
+def embed_specs(cfg: ModelConfig) -> dict:
+    fs = _fs(cfg)
+    return {"tok": ("model", fs), "head": (fs, "model")}
+
+
+@dataclasses.dataclass(frozen=True)
+class Shard:
+    """How a block runs: on ``mesh`` (None: one device), with the residual
+    stream's sequence sharded over ``model`` (``sp``, Megatron sequence
+    sharding) or replicated over it."""
+
+    mesh: object = None
+    sp: bool = False
+
+    @property
+    def tp(self) -> int:
+        return M.axis_size(self.mesh, "model")
+
+    @property
+    def r(self) -> int:
+        return M.axis_index(self.mesh, "model")
+
+    def enter(self, x: torch.Tensor) -> torch.Tensor:
+        """The input of a column-parallel linear: the sequence gathered
+        (sp) or the replicated stream entering the partitioned region."""
+        if self.sp:
+            return M.all_gather(x, self.mesh, "model", 1)
+        return M.copy_to_region(x, self.mesh, "model")
+
+    def leave(self, y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel linear's partial sums: reduce-scattered onto the
+        sequence shards (sp) or all-reduced."""
+        if self.sp:
+            return M.reduce_scatter(y, self.mesh, "model", 1)
+        return M.all_reduce(y, self.mesh, "model")
+
+    def region(self, w: torch.Tensor) -> torch.Tensor:
+        """A replicated parameter used inside a computation partitioned over
+        ``model``: its gradient is the sum of the ranks' parts."""
+        return M.copy_to_region(w, self.mesh, "model")
+
+    def gain(self, g: dict) -> dict:
+        """A norm's gain: partitioned over the sequence shards under sp."""
+        return {"g": self.region(g["g"])} if self.sp else g
+
+    def full(self, w: torch.Tensor, spec) -> torch.Tensor:
+        """w with its FSDP (``data``) axes gathered."""
+        for dim, part in enumerate(spec):
+            if part == "data":
+                w = M.all_gather(w, self.mesh, "data", dim)
+        return w
 
 
 def flash_attention(
@@ -380,21 +546,75 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attention_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, cache: Optional[dict],
-                    offset, positions: torch.Tensor, paged) -> torch.Tensor:
+                    offset, positions: torch.Tensor, paged, shard: Shard = Shard()
+                    ) -> torch.Tensor:
     """The dense family's attention block over the normed input x (B, S,
     d): q / k / v from the (d, heads, hd) weights, rope, layer i's
     ``attend``, and the (heads, hd, d) output projection (the reference's
-    ``einsum``s as ``linear``s over the weights' flat views)."""
+    ``einsum``s as ``linear``s over the weights' flat views).
+
+    On a mesh ``p`` is this rank's shard: with tensor-parallel attention
+    the rank's q heads, the kv heads its virtual heads repeat (wk / wv are
+    replicated), attention over its own heads and the cache's, and wo's
+    rows, ending in the all-reduce (or reduce-scatter); otherwise attention
+    runs whole on every rank of ``model``, on the gathered sequence under
+    sp, and each rank keeps its own rows."""
+    specs = attention_specs(cfg, shard.tp)
+    w = {k: shard.full(v, specs[k]) for k, v in p.items()}
+    if attn_tp_enabled(cfg, shard.tp):
+        return _attention_tp(w, x, cfg, i, cache, offset, positions, paged, shard)
+    if shard.sp:
+        x = M.gather_replicated(x, shard.mesh, "model", 1)
+    out = _attention_local(w, x, cfg, i, cache, offset, positions, paged, cfg.n_kv)
+    return M.split(out, shard.mesh, "model", 1) if shard.sp else out
+
+
+def _attention_local(w, x, cfg, i, cache, offset, positions, paged, kv_heads: int
+                     ) -> torch.Tensor:
+    """Attention of every head, on one rank's whole input."""
     b, s, d = x.shape
-    h, kv, hd = cfg.n_heads, cfg.n_kv, cfg.hd
-    q = linear(x, p["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
-    k = linear(x, p["wk"].reshape(d, kv * hd)).reshape(b, s, kv, hd)
-    v = linear(x, p["wv"].reshape(d, kv * hd)).reshape(b, s, kv, hd)
+    h, hd = w["wq"].shape[1], cfg.hd
+    q = linear(x, w["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
+    k = linear(x, w["wk"].reshape(d, kv_heads * hd)).reshape(b, s, kv_heads, hd)
+    v = linear(x, w["wv"].reshape(d, kv_heads * hd)).reshape(b, s, kv_heads, hd)
     if cfg.qk_norm:
-        q, k = qk_head_norm(q, p["q_norm"]), qk_head_norm(k, p["k_norm"])
+        q, k = qk_head_norm(q, w["q_norm"]), qk_head_norm(k, w["k_norm"])
     q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
     out = attend(i, q, k, v, cache, offset, paged).reshape(b, s, h * hd)
-    return linear(out, p["wo"].reshape(h * hd, d))
+    return linear(out, w["wo"].reshape(h * hd, d))
+
+
+def virtual_heads(cfg: ModelConfig, tp: int, r: int):
+    """Rank r's virtual kv heads (first, count) and the real kv heads they
+    repeat (first, count): heads repeat contiguously, virtual head v
+    serving q heads [v * H / store, (v + 1) * H / store)."""
+    store = kv_store_heads(cfg, tp)
+    rep, n = store // cfg.n_kv, store // tp
+    first = r * n
+    lo, hi = first // rep, (first + n - 1) // rep + 1
+    return (first, n), (lo, hi - lo)
+
+
+def _attention_tp(w, x, cfg, i, cache, offset, positions, paged, shard: Shard):
+    (vfirst, vn), (lo, nreal) = virtual_heads(cfg, shard.tp, shard.r)
+    rep = kv_store_heads(cfg, shard.tp) // cfg.n_kv
+    xin = shard.enter(x)
+    b, s, d = xin.shape
+    hl, hd = w["wq"].shape[1], cfg.hd
+    wk = shard.region(w["wk"])[:, lo:lo + nreal]
+    wv = shard.region(w["wv"])[:, lo:lo + nreal]
+    q = linear(xin, w["wq"].reshape(d, hl * hd)).reshape(b, s, hl, hd)
+    k = linear(xin, wk.reshape(d, nreal * hd)).reshape(b, s, nreal, hd)
+    v = linear(xin, wv.reshape(d, nreal * hd)).reshape(b, s, nreal, hd)
+    if cfg.qk_norm:
+        q = qk_head_norm(q, shard.region(w["q_norm"]))
+        k = qk_head_norm(k, shard.region(w["k_norm"]))
+    q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
+    off = vfirst - lo * rep
+    k = torch.repeat_interleave(k, rep, dim=2)[:, :, off:off + vn]
+    v = torch.repeat_interleave(v, rep, dim=2)[:, :, off:off + vn]
+    out = attend(i, q, k, v, cache, offset, paged).reshape(b, s, hl * hd)
+    return shard.leave(linear(out, w["wo"].reshape(hl * hd, d)))
 
 
 def _normal(gen: torch.Generator, shape, dtype, device, scale: float) -> torch.Tensor:
@@ -432,20 +652,25 @@ def mlp_init(gen: torch.Generator, cfg: ModelConfig, device) -> dict:
             "w_down": _normal(gen, (f, d), dt, device, s_out)}
 
 
-def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, shard: Shard = Shard()
+              ) -> torch.Tensor:
     """The FFN of ``cfg.act``: SwiGLU (silu of the gate in float32, cast to
     x's dtype, times up), squared ReLU or tanh-form GELU (of up in float32,
-    cast to x's dtype), then down."""
+    cast to x's dtype), then down.  On a mesh ``p`` holds this rank's
+    columns of the inner dim (w_gate / w_up) and rows of w_down."""
+    specs = mlp_specs(cfg)
+    w = {k: shard.full(v, specs[k]) for k, v in p.items()}
+    x = shard.enter(x)
     if cfg.act == "swiglu":
-        h = silu_mul(linear(x, p["w_gate"]), linear(x, p["w_up"]), x.dtype)
+        h = silu_mul(linear(x, w["w_gate"]), linear(x, w["w_up"]), x.dtype)
     elif cfg.act == "squared_relu":
-        r = F.relu(linear(x, p["w_up"]).float())
+        r = F.relu(linear(x, w["w_up"]).float())
         h = (r * r).to(x.dtype)
     elif cfg.act == "gelu":  # jax.nn.gelu defaults to the tanh form
-        h = F.gelu(linear(x, p["w_up"]).float(), approximate="tanh").to(x.dtype)
+        h = F.gelu(linear(x, w["w_up"]).float(), approximate="tanh").to(x.dtype)
     else:
         raise ValueError(f"unknown activation {cfg.act!r}")
-    return linear(h, p["w_down"])
+    return shard.leave(linear(h, w["w_down"]))
 
 
 def topk_gates(logits: torch.Tensor, k: int):
@@ -484,11 +709,130 @@ def moe_apply_dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out.to(x.dtype).reshape(b, s, d)
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The MoE block.  The reference takes its all-to-all expert-parallel
-    path only over a device mesh; the port runs one device, so this is the
-    dense combine whatever ``cfg.moe_impl`` says."""
-    return moe_apply_dense(p, x, cfg)
+def embed_lookup(tok: torch.Tensor, tokens: torch.Tensor, shard: Shard) -> torch.Tensor:
+    """Rows of the embedding ``tok`` for ``tokens``; on a mesh ``tok`` is the
+    rank's vocabulary block: a masked lookup, then the all-reduce over
+    ``model`` that completes every row (exactly: one rank holds each)."""
+    if shard.tp == 1:
+        return tok[tokens.long()]
+    n = tok.shape[0]
+    local = tokens.long() - shard.r * n
+    inside = (local >= 0) & (local < n)
+    x = tok[torch.where(inside, local, torch.zeros_like(local))]
+    x = torch.where(inside[..., None], x, torch.zeros_like(x))
+    return M.all_reduce(x, shard.mesh, "model")
+
+
+def topk_dispatch(t: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, cap: int):
+    """The GShard dispatch of tokens t (T, d): the top-k router gates, and
+    for each (token, choice) its expert, its slot (its rank among the
+    expert's choosers in token order, the cumulative one-hot) and whether
+    it fits the capacity ``cap`` -> (flat_ids, slot, keep, flat_gates,
+    flat_tok), each (T * k,)."""
+    n_tok = t.shape[0]
+    gates, ids = topk_gates(t.float() @ router.float(), cfg.top_k)
+    flat_ids = ids.reshape(-1)
+    onehot = F.one_hot(flat_ids, cfg.n_experts).to(torch.int32)
+    slot = ((torch.cumsum(onehot, dim=0) - 1) * onehot).sum(-1)
+    keep = slot < cap
+    flat_tok = torch.arange(n_tok, device=t.device).repeat_interleave(cfg.top_k)
+    return flat_ids, slot, keep, gates.reshape(-1), flat_tok
+
+
+def moe_capacity(cfg: ModelConfig, n_tok: int) -> int:
+    """Slots per (rank, expert): the reference's max(int(cf * T * k / E), 4)
+    from the rank's own token count."""
+    return max(int(cfg.capacity_factor * n_tok * cfg.top_k / cfg.n_experts), 4)
+
+
+def moe_dispatch_a2a(t, router, cfg: ModelConfig, shard: Shard, experts):
+    """GShard expert parallelism of tokens t (T, d): slots of capacity
+    ``moe_capacity`` per expert, shipped over ``model``'s all-to-all to
+    their (expert x ff slice) owners, ``experts(recv)`` on the owner's
+    (e_loc, tp * cap, d) slots, shipped back, ff slices summed, and the
+    gated combine in float32 (tokens past capacity drop to the residual).
+
+    The owner orders its received slots expert-major, (e_loc, peer, cap):
+    the all-to-all delivers them peer-major, (peer, e_loc, cap), so they
+    are transposed before the expert GEMMs and back after them.  The
+    reference reshapes without that transpose, which pairs expert e's
+    weights with another expert's slots whenever a rank holds more than
+    one expert (ROADMAP, reference notes).  Each token's k gated outputs
+    add in choice order from zero, as the reference's scatter-add does on
+    the CPU, with no atomics: the result does not depend on the run."""
+    tp, e, d = shard.tp, cfg.n_experts, t.shape[-1]
+    split = moe_ff_split(cfg, tp)
+    e_loc = max(e // tp, 1)
+    cap = moe_capacity(cfg, t.shape[0])
+    flat_ids, slot, keep, flat_gates, flat_tok = topk_dispatch(t, router, cfg, cap)
+    kid, kslot = flat_ids[keep], slot[keep]
+    buf = torch.zeros((e * cap, d), dtype=t.dtype, device=t.device)
+    buf = buf.index_put((kid * cap + kslot,), t[flat_tok[keep]]).reshape(e, cap, d)
+    if split > 1:
+        buf = torch.repeat_interleave(buf, split, dim=0)
+    recv = M.all_to_all(buf.reshape(tp, e_loc, cap, d), shard.mesh, "model")
+    y = experts(recv.transpose(0, 1).reshape(e_loc, tp * cap, d))
+    y = y.reshape(e_loc, tp, cap, d).transpose(0, 1)
+    back = M.all_to_all(y.contiguous(), shard.mesh, "model")
+    back = back.reshape(e, split, cap, d).sum(dim=1) if split > 1 else back.reshape(e, cap, d)
+    picked = back.reshape(e * cap, d)[(flat_ids * cap + slot.clamp(max=cap - 1))].float()
+    contrib = torch.where(keep[:, None], picked * flat_gates[:, None], torch.zeros_like(picked))
+    contrib = contrib.reshape(t.shape[0], cfg.top_k, d)
+    out = torch.zeros((t.shape[0], d), dtype=torch.float32, device=t.device)
+    for j in range(cfg.top_k):  # the reference's scatter-add order, no atomics
+        out = out + contrib[:, j]
+    return out.to(t.dtype)
+
+
+def moe_apply_a2a(p: dict, x: torch.Tensor, cfg: ModelConfig, shard: Shard) -> torch.Tensor:
+    """The bf16 expert-parallel MoE block on this rank's tokens x (B, S, d)
+    (its sequence shard under sp, else the rows every model rank holds)
+    and its experts p (e_loc, d, f / split) / (e_loc, f / split, d).
+
+    Without sequence sharding every model rank dispatches the same tokens,
+    so a backward would sum each expert's gradient tp times: autograd
+    through that case raises."""
+    if shard.tp > 1 and not shard.sp and torch.is_grad_enabled() and (
+            x.requires_grad or any(v.requires_grad for v in p.values())):
+        raise NotImplementedError(
+            "moe_apply_a2a: no backward without sequence sharding (every model rank "
+            "dispatches the same tokens, so each expert's gradient would count tp "
+            "copies); train with seq_shard and S % tp == 0, or moe_impl='dense'")
+    specs = moe_specs(cfg, shard.tp)
+    w = {k: shard.full(v, specs[k]) for k, v in p.items()}
+    b, s, d = x.shape
+    router = shard.region(w["router"]) if shard.sp else w["router"]
+
+    def experts(recv):
+        h = silu_mul(torch.matmul(recv, w["w_gate"]), torch.matmul(recv, w["w_up"]), x.dtype)
+        return torch.matmul(h, w["w_down"])
+
+    return moe_dispatch_a2a(x.reshape(-1, d), router, cfg, shard, experts).reshape(b, s, d)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, shard: Shard = Shard()
+              ) -> torch.Tensor:
+    """The MoE block: the all-to-all expert-parallel path on a mesh when
+    ``cfg.moe_impl`` is "a2a" (the reference's choice), else the dense
+    combine (on a mesh over every expert, gathered over ``model``)."""
+    if shard.mesh is None:
+        return moe_apply_dense(p, x, cfg)
+    if cfg.moe_impl == "a2a":
+        return moe_apply_a2a(p, x, cfg, shard)
+    specs = moe_specs(cfg, shard.tp)
+    gather = M.all_gather if shard.sp else M.gather_replicated
+    w = {k: shard.full(v, specs[k]) for k, v in p.items()}
+    e = cfg.n_experts
+    full = {"router": shard.region(w["router"]) if shard.sp else w["router"]}
+    for name in ("w_gate", "w_up", "w_down"):
+        t = gather(w[name], shard.mesh, "model", 0)
+        es, a, b = t.shape
+        split = es // e
+        if name == "w_down":
+            full[name] = t.reshape(e, split * a, b)
+        else:
+            full[name] = t.reshape(e, split, a, b).permute(0, 2, 1, 3).reshape(e, a, split * b)
+    return moe_apply_dense(full, x, cfg)
 
 
 def xent(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

@@ -102,6 +102,15 @@ class ElasticTrainer:
     failure_source() -> Optional[int]: host id that died this tick (tests
         inject here; production wires the HeartbeatMonitor).
     device: where restored trees are placed.
+    writer() -> bool: whether this process writes checkpoints (on a mesh,
+        rank 0; every rank still builds ``state_to_tree``, a collective).
+    sync(): a barrier over the current world, run before a checkpoint is
+        read, so no rank reads before the writer has finished.
+
+    Over real ranks every rank runs its own ElasticTrainer with the same failure
+    source; ``build_fn`` re-forms the world for the new fleet size
+    (``launch.train.elastic_trainer``) and returns ``(None, None)`` on a
+    rank that is no longer part of it, whose ``run`` then returns None.
     """
 
     def __init__(
@@ -113,6 +122,8 @@ class ElasticTrainer:
         failure_source: Optional[Callable[[], Optional[int]]] = None,
         min_hosts: int = 1,
         device="cuda",
+        writer: Optional[Callable[[], bool]] = None,
+        sync: Optional[Callable[[], None]] = None,
     ):
         self.cfg = cfg
         self.n_hosts = n_hosts
@@ -121,7 +132,9 @@ class ElasticTrainer:
         self.build_fn = build_fn
         self.state_to_tree = state_to_tree
         self.failure_source = failure_source or (lambda: None)
-        self.ckpt = AsyncCheckpointer(cfg.ckpt_dir)
+        self.writer = writer or (lambda: True)
+        self.sync = sync or (lambda: None)
+        self.ckpt = AsyncCheckpointer(cfg.ckpt_dir) if self.writer() else None
         self.restarts = 0
         self.history: List[dict] = []
 
@@ -132,7 +145,7 @@ class ElasticTrainer:
         step, tree, extra = load_checkpoint(self.cfg.ckpt_dir, step, device=self.device)
         return step, tree, extra
 
-    def run(self, total_steps: int) -> List[dict]:
+    def run(self, total_steps: int) -> Optional[List[dict]]:
         step = 0
         state, step_fn = self.build_fn(self.n_hosts, self._restore_tuple())
         restored = self._restore_tuple()
@@ -146,9 +159,13 @@ class ElasticTrainer:
                 if self.restarts > self.cfg.max_restarts:
                     raise RuntimeError("restart budget exhausted")
                 self.n_hosts = max(self.n_hosts - 1, self.min_hosts)
-                self.ckpt.wait()
+                if self.ckpt is not None:
+                    self.ckpt.wait()
+                self.sync()
                 restored = self._restore_tuple()
                 state, step_fn = self.build_fn(self.n_hosts, restored)
+                if state is None:  # this rank left the world
+                    return None
                 step = (restored[0] + 1) if restored is not None else 0
                 self.history.append({"event": "restart", "step": step,
                                      "n_hosts": self.n_hosts})
@@ -158,7 +175,10 @@ class ElasticTrainer:
             metrics.update({"event": "step", "step": step, "n_hosts": self.n_hosts})
             self.history.append(metrics)
             if step % self.cfg.ckpt_every == 0 or step == total_steps - 1:
-                self.ckpt.save(step, self.state_to_tree(state), {"step": step})
+                tree = self.state_to_tree(state)
+                if self.ckpt is not None:
+                    self.ckpt.save(step, tree, {"step": step})
             step += 1
-        self.ckpt.wait()
+        if self.ckpt is not None:
+            self.ckpt.wait()
         return self.history

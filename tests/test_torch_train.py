@@ -211,16 +211,21 @@ def test_cli_trains_on_the_cpu(capsys):
     assert "arch=zamba2-smoke" in out and "device=cpu" in out and "loss " in out
 
 
-def test_mesh_is_one_device():
+def test_mesh_is_one_device(monkeypatch):
+    """Without a process group the mesh is one device; a larger mesh needs a
+    world of its size (tests/test_torch_mesh.py runs them), and the
+    production mesh a torchrun world of 256 or 512 ranks."""
     m = tmesh.make_cpu_mesh()
     assert m.shape == {"data": 1, "model": 1} and m.device == torch.device("cpu")
     for kw in ({"data": 2}, {"model": 16}):
-        with pytest.raises(NotImplementedError, match="sharded-mesh"):
+        with pytest.raises(RuntimeError, match="needs a process group"):
             tmesh.make_cpu_mesh(**kw)
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
     for mp in (False, True):
-        with pytest.raises(NotImplementedError, match="sharded-mesh"):
+        with pytest.raises(RuntimeError, match="torchrun"):
             tmesh.make_production_mesh(multi_pod=mp)
-    with pytest.raises(NotImplementedError, match="sharded-mesh"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         ttrain.main(["--arch", "mamba2-1.3b", "--multi-pod"])
 
 
