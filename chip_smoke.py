@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py             # every phase (what a GPU check runs)
     python3 chip_smoke.py --profile   # also profile a few rounds of ten paths
+    python3 chip_smoke.py --mesh-only # the build and the mesh phases, no result line
 
 Phases, in order (any failure exits non-zero before the final line):
 
@@ -216,7 +217,9 @@ Phases, in order (any failure exits non-zero before the final line):
    tokens equal a full re-forward's argmax except at a near-tie; bf16
    decode logits within BF16_DECODE_FACTOR times the bf16 re-forward's
    distance from the float32 re-forward; card against CPU at smoke size.  Phases 27-30
-   print their seconds.
+   print their seconds.  Before them ``kvq8_path``: Qwen3-8B in bf16 with
+   the dense int8 KV cache (``kv_quant``), every one-token step through K7,
+   against its CPU twin (the reference's bfloat16 decode math).
 31-34. The mesh (``MESH_PHASES``: the three serving paths share one
    (1, 2) world whose ranks run their jobs in turn after every one-device
    run; training and the elastic run share a (2, 2) world, the restore a
@@ -237,8 +240,17 @@ Phases, in order (any failure exits non-zero before the final line):
    ZeRO-1 and sequence sharding, 8 steps against one device, losses and
    grad norms within bounds; a checkpoint
    restored onto (1, 1) and (2, 1) bit for bit; an elastic run from 4
-   ranks to 2).  ``--cpu-dry-run`` runs the mesh phases at smoke size on
-   the CPU.
+   ranks to 2).  The (1, 2) world also runs the launch cells
+   (``launch.steps.build_cell`` prefill and decode cells, 4 x 64 prompts,
+   16 decode steps teacher-forced on the one-device run's tokens):
+   mamba2-1.3b, zamba2-7b and whisper-large-v3 in bf16 at full width
+   (depth cut: ``CELLS``; every step's logits within a bound read on the
+   card), and Qwen3-8B's ``w4a8+kvq8`` cell (K1, K2 and K7; bit for
+   bit); then
+   ``dryrun_path``: the dry-run's meta (1, 2) trace of those cells logs
+   exactly the world's collectives (gated), its roofline step time beside
+   the measured one, and a subset of the dry-run CLI's grid.
+   ``--cpu-dry-run`` runs the mesh phases at smoke size on the CPU.
 
 Each path prints its tokens/s, rounds, target forwards per emitted token,
 device-to-host copies per round and, on a WDOS engine, its fused-slot
@@ -307,11 +319,9 @@ KERNELS = {
 PATH_OF = {"w4a8_matmul": "main_path", "block_rotate": "main_path", "bvq_matmul": "main_path",
            "paged_attention": "main_path", "paged_attention_int8": "int8_path",
            "paged_attention_tree": "tree_path", "paged_attention_int8_tree": "tree_path",
-           "decode_attention_int8": "main_path", "w4a8_matmul_int32": "tp_path"}
-# kernels no path must launch: no serving path of the reference calls
-# decode_attention_int8, so only its kernel phase runs it; the summary
-# line still reads its (zero) count from the main path's counters
-NO_PATH = {"decode_attention_int8"}
+           "decode_attention_int8": "kvq8_path", "w4a8_matmul_int32": "tp_path"}
+# kernels no path launches (every kernel has its path)
+NO_PATH = set()
 # the CUDA symbols of the port's kernels, as the profiler names them
 PORT_SYMBOLS = ("w4a8_mma_kernel", "bvq_mma_kernel", "block_rotate_kernel", "paged_attn_kernel",
                 "decode_attn_int8_kernel")
@@ -675,15 +685,16 @@ def check_paged(dev, timer, g, b, w, kvs, hd, ps, mp, lengths, quantized=False, 
     )
 
 
-def check_decode_int8(dev, timer, g, b, s, kvs, hd, length):
-    """The dense int8 decode kernel at a full LLaMA2-7B cache (G = 1), and
-    a bitwise check that a poisoned tail past `length` changes nothing."""
+def check_decode_int8(dev, timer, g, b, s, kvs, hd, length, group=1):
+    """The dense int8 decode kernel (G = ``group`` query heads per kv head),
+    and a bitwise check that a poisoned tail past `length` changes
+    nothing."""
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attn import decode_attention_int8
     from repro_torch.models.layers import kv_quantize
 
-    q = torch.randn((b, kvs, 1, hd), generator=g, device=dev).to(torch.bfloat16)
+    q = torch.randn((b, kvs, group, hd), generator=g, device=dev).to(torch.bfloat16)
     kq, ks = kv_quantize(torch.randn((b, s, kvs, hd), generator=g, device=dev))
     vq, vs = kv_quantize(torch.randn((b, s, kvs, hd), generator=g, device=dev))
     ks, vs = ks[..., 0].contiguous(), vs[..., 0].contiguous()
@@ -697,17 +708,21 @@ def check_decode_int8(dev, timer, g, b, s, kvs, hd, length):
     poisoned = decode_attention_int8(q, kq2, ks, vq, vs2, ln)
     kd = (kq.float() * ks[..., None]).to(torch.bfloat16).permute(0, 2, 1, 3)
     vd = (vq.float() * vs[..., None]).to(torch.bfloat16).permute(0, 2, 1, 3)
+    qd = q if group == 1 else q.reshape(b, kvs * group, 1, hd)
+    if group > 1:  # the library call's GQA: each kv head repeated to its group
+        kd = kd.repeat_interleave(group, dim=1)
+        vd = vd.repeat_interleave(group, dim=1)
     mask = (torch.arange(s, device=dev) < length)[None, None, None]
     n = min(length, s) if length > 0 else s
     bound, by = bound_ms(2 * b * n * kvs * (hd + 4) + (q.element_size() + 4) * q.numel() + 4,
-                         4.0 * hd * kvs * b * n, "bf16")
+                         4.0 * hd * kvs * group * b * n, "bf16")
     return dict(
         max_abs_err=float((got - want).abs().max()), tol=2e-5,
         repeat_bitwise_equal=bool(torch.equal(got, decode_attention_int8(*args))),
         poisoned_tail_bitwise_equal=bool(torch.equal(got, poisoned)),
         kernel_ms=timer.ms(lambda: decode_attention_int8(*args)),
         plain_ms=timer.ms(lambda: ref.decode_attn_int8_ref(*args)),
-        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(q, kd, vd, attn_mask=mask)),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask)),
         bound_ms=bound, bound_by=by,
     )
 
@@ -904,6 +919,12 @@ def phase_kernels(dev, seed):
                             f"lengths {'/'.join(map(str, long_lens))}",
                       lambda q=quantized: check_paged(dev, timer, g, 4, 1, 32, 128, 16, 256,
                                                       long_lens, quantized=q)))
+    # K7 at the kvq8 path's shape first: its record is the summary line's
+    cases.append(("decode_attention_int8",
+                  f"Qwen3-8B kvq8 path B={TP_BATCH} S={KVQ8_S_MAX} KVS=8 G=4 hd=128 "
+                  f"length={KVQ8_S_MAX - 1}",
+                  lambda: check_decode_int8(dev, timer, g, TP_BATCH, KVQ8_S_MAX, 8, 128,
+                                            KVQ8_S_MAX - 1, group=4)))
     for length in (4096, 1500, 17, 1):
         cases.append(("decode_attention_int8",
                       f"full LLaMA2-7B cache B=4 S=4096 KVS=32 G=1 hd=128 length={length}",
@@ -2910,6 +2931,80 @@ def phase_nemotron_path(dev, profile=False):
     return {"nemotron_path": launches}
 
 
+def phase_kvq8_path(dev):
+    """``kvq8_path``: Qwen3-8B at full width, cut to KVQ8_LAYERS layers, in
+    bf16 with ``ModelConfig.kv_quant`` (the dense int8 KV cache), built
+    from SEED on the card (``launch.steps.build_params``): a prefill of
+    TP_BATCH x TP_PROMPT seeded tokens and KVQ8_STEPS greedy steps through
+    ``lm.apply_lm``, every one-token step's attention through K7 (counted:
+    KVQ8_LAYERS x KVQ8_STEPS launches).  K7 on the run's own layer-0 int8
+    cache and scales at full width (B = 4, S = KVQ8_S_MAX, 8 kv heads of G
+    = 4, hd = 128) against its plain version within the kernel phase's
+    2e-5.  The same weights and prompts on the CPU, where the step runs
+    the reference's bfloat16 decode math (K7 keeps float32): tokens equal
+    except at a near-tie of the bf16 logits (``_hold_rows``' bf16 rule:
+    top-2 margin <= max(NEAR_TIE, BF16_NEAR_TIE_ULPS ulps of the top
+    logit) at the first differing step; the first card call read a margin
+    of one ulp, 0.03125 at a top logit in [4, 8))."""
+    from repro_torch import configs
+    from repro_torch.core.tree import tree_map
+    from repro_torch.kernels import _lib, ref
+    from repro_torch.kernels.decode_attn import decode_attention_int8
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get_config("qwen3-8b"), n_layers=KVQ8_LAYERS,
+                              kv_quant=True)
+    t0 = time.perf_counter()
+    params = steps.build_params(cfg, M.make_mesh(dev), SEED)
+    prompts = np.random.RandomState(SEED).randint(0, cfg.vocab, (TP_BATCH, TP_PROMPT))
+
+    def greedy(p, device):
+        toks = torch.as_tensor(prompts, device=device)
+        with torch.no_grad():
+            cache = lm.init_cache(cfg, TP_BATCH, KVQ8_S_MAX, device)
+            logits, cache = lm.apply_lm(p, cfg, toks, cache=cache, last_logit_only=True)
+            out, picked = [logits[:, -1].float().cpu()], [logits[:, -1].argmax(-1)]
+            for _ in range(KVQ8_STEPS):
+                logits, cache = lm.apply_lm(p, cfg, picked[-1][:, None], cache=cache)
+                out.append(logits[:, -1].float().cpu())
+                picked.append(logits[:, -1].argmax(-1))
+        return {"logits": torch.stack(out, 1), "tokens": torch.stack(picked, 1).cpu()}, cache
+
+    _lib.launches.clear()
+    t1 = time.perf_counter()
+    card, cache = greedy(params, dev)
+    _sync(dev)
+    card_s = time.perf_counter() - t1
+    launches = dict(_lib.launches)
+    if dev.type == "cuda" and launches.get("decode_attention_int8") != KVQ8_LAYERS * KVQ8_STEPS:
+        raise AssertionError(f"kvq8_path: K7 launched {launches} for {KVQ8_LAYERS} layers x "
+                             f"{KVQ8_STEPS} steps")
+    attn = cache["attn"]
+    length = int(cache["length"])
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn((TP_BATCH, 8, 4, cfg.hd), generator=g, device=dev).to(torch.bfloat16)
+    args = (q, attn["k"][0], attn["k_scale"][0][..., 0], attn["v"][0],
+            attn["v_scale"][0][..., 0], torch.tensor([length], dtype=torch.int32, device=dev))
+    k7_err = float((decode_attention_int8(*args) - ref.decode_attn_int8_ref(*args)).abs().max())
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    del params, cache, attn, args
+    _free(dev)
+    t1 = time.perf_counter()
+    cpu, _ = greedy(cpu_params, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t1
+    emit(phase="kvq8_path", config=cfg.name, layers=cfg.n_layers, launches=launches,
+         k7_on_path_cache={"shape": f"B={TP_BATCH} S={KVQ8_S_MAX} KVS=8 G=4 hd={cfg.hd}",
+                           "length": length, "max_abs_err": k7_err, "tol": 2e-5},
+         card_s=card_s, cpu_s=cpu_s, total_s=time.perf_counter() - t0)
+    if not k7_err <= 2e-5:
+        raise AssertionError(f"kvq8_path: K7 on the path's cache misses its plain version by "
+                             f"{k7_err}")
+    _hold_rows("kvq8_path", card, cpu, bf16=True)
+    return launches
+
+
 def phase_families_card_vs_cpu(dev):
     """The smoke configs of the three public paths, built on the CPU from
     SEED and copied to the card: ``qwen3-smoke`` as a W4A8 target with a
@@ -3361,6 +3456,33 @@ def phase_ssm_families_path(dev):
 # ---------------------------------------------------------------------------
 
 TP_PROMPT, TP_BATCH, TP_STEPS = 64, 4, 32  # tp paths: prefill 4 x 64, 32 greedy steps
+CELL_STEPS = 16  # the launch cells' decode steps (after the same 4 x 64 prefill)
+CELL_S_MAX = TP_PROMPT + CELL_STEPS + 1  # their dense caches' depth
+# kvq8_path: Qwen3-8B in bf16 cut to 2 layers, 8 greedy steps: its CPU twin pads each
+# step's 4 rows to a 128-row block (layers.linear) and took 42 s at 4 layers x 16 steps
+KVQ8_LAYERS, KVQ8_STEPS = 2, 8
+KVQ8_S_MAX = TP_PROMPT + KVQ8_STEPS + 1
+# the launch cells of the (1, 2) world: name -> (arch, config fields, quant, depth cut
+# at full width; the whole run took 942.6 s of the 1200 s limit at full depth):
+# mamba2-1.3b 24 of 48 layers, zamba2-7b 27 of 81 (4 of the shared block's 13
+# applications, the 3 tail blocks), whisper-large-v3 16 + 16 of 32 + 32, the
+# w4a8+kvq8 cell 8 of Qwen3-8B's 36 (tp_path runs all 36)
+CELLS = {"mamba2_cell_path": ("mamba2-1.3b", {}, None, {"n_layers": 24}),
+         "zamba2_cell_path": ("zamba2-7b", {}, None, {"n_layers": 27}),
+         "whisper_cell_path": ("whisper-large-v3", {}, None,
+                               {"n_layers": 16, "n_encoder_layers": 16}),
+         "w4a8_kvq8_cell_path": ("qwen3-8b", {"kv_quant": True}, "w4a8", {"n_layers": 8})}
+# the cells ``--cpu-dry-run`` runs at smoke size (the others share their code; the
+# tests run every family's smoke cells in their worlds)
+SMOKE_CELLS = ("mamba2_cell_path", "w4a8_kvq8_cell_path")
+# bf16 logits of the cells on (1, 2), teacher-forced, against one device, the prefill's
+# and every decode step's: about four times the largest gap read on the H100 at the
+# cut depths (PERF.md section 6: 0.2958984375, 0.25, 0.078125)
+CELL_LOGIT_ATOL = {"mamba2_cell_path": 1.25, "zamba2_cell_path": 1.0,
+                   "whisper_cell_path": 0.3125}
+# the dry-run CLI's cells in dryrun_path: decode_32k of three families on both meshes
+# (the whole grid's wall is in PERF.md)
+DRYRUN_GRID = ("qwen3-8b", "mamba2-1.3b", "whisper-large-v3")
 EP_LAYERS = 8  # ep_path depth: the (1, 1) reference and two half shards on one card
 EP_PROMPT, EP_STEPS = 32, 8
 MESH_TRAIN_STEPS, MESH_TRAIN_SAVE = 8, 4
@@ -3511,6 +3633,81 @@ def _tp_decode(mesh, arch, quantize, n_layers=None, moe_fields=None, dev="cuda",
     }
 
 
+def _cell_names(smoke):
+    return list(SMOKE_CELLS if smoke else CELLS)
+
+
+def _cell_cfg(name, smoke):
+    """(config, quant) of a launch cell: the arch's full config with its
+    fields and depth cut, or its smoke config with its fields."""
+    from repro_torch import configs
+
+    arch, fields, quant, depth = CELLS[name]
+    cfg = (configs.get_smoke if smoke else configs.get_config)(arch)
+    return dataclasses.replace(cfg, **fields, **({} if smoke else depth)), quant
+
+
+def _cell_decode(mesh, name, dev="cuda", smoke=False, forced=None):
+    """One rank's (or, without a mesh, one device's) run of a launch cell
+    (``CELLS[name]``): ``launch.steps.build_cell``'s prefill cell (TP_BATCH
+    x TP_PROMPT seeded tokens, whisper's seeded frames, params from SEED,
+    a CELL_S_MAX-deep dense cache) and then its decode cell's step for
+    CELL_STEPS tokens over that cache: greedy, or teacher-forced on
+    ``forced`` (another run's tokens, (TP_BATCH, CELL_STEPS + 1)), so each
+    step's logits come from the same inputs as that run's.  The logits,
+    the argmax tokens, launches and the collectives of the prefill and per
+    decode step (calls and bytes by kind)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import steps
+    from repro_torch.models.common import ShapeConfig
+
+    dev = mesh.device if mesh is not None else torch.device(dev)
+    cfg, quant = _cell_cfg(name, smoke)
+    m = mesh if mesh is not None else M.make_mesh(dev)
+    if dev.type == "cuda":
+        torch.zeros(1, device=dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    prefill = steps.build_cell(cfg, ShapeConfig("prefill", TP_PROMPT, TP_BATCH, "prefill"), m,
+                               seed=SEED, quant=quant, s_max=CELL_S_MAX)
+    params = prefill.args[0]
+    decode = steps.build_cell(cfg, ShapeConfig("decode", TP_PROMPT, TP_BATCH, "decode"), m,
+                              seed=SEED, quant=quant, params=params)
+    _sync(dev)
+    build_s = time.perf_counter() - t0
+    _lib.launches.clear()
+    m.comm.clear()
+    with torch.no_grad():
+        _sync(dev)
+        t0 = time.perf_counter()
+        logits, cache = prefill.fn(*prefill.args)
+        _sync(dev)
+        prefill_s = time.perf_counter() - t0
+        comm_prefill = dict(m.comm)
+        m.comm.clear()
+        step_logits, toks = [logits[:, -1].float().cpu()], [logits[:, -1].argmax(-1)]
+        t0 = time.perf_counter()
+        for i in range(CELL_STEPS):
+            fed = toks[-1] if forced is None else forced[:, i].to(dev)
+            logits, cache = decode.fn(params, fed[:, None].to(torch.int32), cache)
+            step_logits.append(logits[:, -1].float().cpu())
+            toks.append(logits[:, -1].argmax(-1))
+        _sync(dev)
+        decode_s = time.perf_counter() - t0
+    per_step = {k: v / CELL_STEPS for k, v in m.comm.items()}
+    return {
+        "mesh": None if mesh is None else dict(mesh.shape),
+        "note": None if mesh is None else _rank_note(mesh),
+        "keep": mesh is None or mesh.coords["model"] == 0, "config": cfg.name,
+        "layers": cfg.n_layers, "build_s": build_s, "prefill_ms": prefill_s * 1e3,
+        "step_ms": decode_s * 1e3 / CELL_STEPS, "logits": torch.stack(step_logits, 1),
+        "tokens": torch.stack(toks, 1).cpu(), "launches": dict(_lib.launches),
+        "forwards": CELL_STEPS + 1, "comm_prefill": comm_prefill, "comm_per_step": per_step,
+        "peak_gb": _peak_gb(dev), "cell": name,
+    }
+
+
 def _free(dev):
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -3550,6 +3747,32 @@ def _hold_rows(phase, got, want, bf16=False):
         raise AssertionError(f"{phase}: rows differ beyond a near-tie: {bad}")
 
 
+def _hold_forced(phase, got, want, atol):
+    """A teacher-forced run (``got``: every step fed ``want``'s token)
+    against ``want``: the logits of the prefill and of every decode step
+    within ``atol``.  Printed: each step's largest gap, and each step whose
+    argmax differs with ``want``'s top-2 margin there in units of the top
+    logit's last bf16 place (the bound admits a flip only where that
+    margin is <= 2 atol)."""
+    gaps = (got["logits"] - want["logits"]).abs().amax(dim=(0, 2))
+    margins = _margins(want["logits"])
+    flips = [{"row": b, "step": t, "top2_margin": float(margins[b, t]),
+              "ulps": float(margins[b, t]) / _bf16_ulp(float(want["logits"][b, t].max()))}
+             for b, t in (got["tokens"] != want["tokens"]).nonzero().tolist()]
+    n = want["tokens"].numel()
+    emit(phase=f"{phase}_forced", atol=atol, step_max_abs_logit_diff=gaps.tolist(),
+         max_abs_logit_diff=float(gaps.max()), argmax_equal=f"{n - len(flips)}/{n}",
+         flips=flips)
+    if not float(gaps.max()) <= atol:
+        raise AssertionError(f"{phase}: teacher-forced logits differ from one device's by "
+                             f"{float(gaps.max())} > {atol} (steps: {gaps.tolist()})")
+
+
+def _max_abs_logit(logits):
+    """The largest |logit| but a padded vocabulary's -1e9 entries."""
+    return float(logits[logits > -1e8].abs().max())
+
+
 def _mesh_report(phase, one, ranks, prefill_atol=None):
     """Prints the sharded run against the one-device run; with
     ``prefill_atol`` fails where their prefill logits (computed from the
@@ -3573,7 +3796,7 @@ def _mesh_report(phase, one, ranks, prefill_atol=None):
          launches=[r["launches"] for r in ranks], forwards=one["forwards"],
          max_abs_logit_diff=float((kept[0]["logits"] - one["logits"]).abs().max()),
          prefill_max_abs_logit_diff=prefill_diff, prefill_atol=prefill_atol,
-         prefill_max_abs_logit=float(want["logits"][:, 0].abs().max()),
+         prefill_max_abs_logit=_max_abs_logit(want["logits"][:, 0]),
          pre_divergence_max_abs_logit_diff=pre,
          logits_bitwise_equal=bool(torch.equal(kept[0]["logits"], one["logits"])))
     if prefill_atol is not None and not prefill_diff <= prefill_atol:
@@ -3609,13 +3832,18 @@ def _one_device(dev, runs, smoke):
         out[name] = _tp_decode(base, arch, quantize, layers, fields, dev=dev, smoke=smoke)
         gc.collect()
         _free(dev)
+    for name in _cell_names(smoke):
+        out[name] = _cell_decode(None, name, dev=dev, smoke=smoke)
+        gc.collect()
+        _free(dev)
     return out
 
 
 def phase_sharded_serving(dev, smoke=False):
-    """``tp_path``, ``tp_bf16_path`` and ``ep_path`` (below) in one (1, 2)
-    world: every one-device run first, then the ranks run the sharded
-    jobs in turn, then each path's checks."""
+    """``tp_path``, ``tp_bf16_path``, ``ep_path`` and the launch cells
+    (``CELLS``, checked by ``check_cell_paths``; then ``dryrun_path``) in
+    one (1, 2) world: every one-device run first, then the ranks run the
+    sharded jobs in turn, then each path's checks."""
     from repro_torch import configs
     from repro_torch.launch import mesh as M
 
@@ -3624,7 +3852,7 @@ def phase_sharded_serving(dev, smoke=False):
     runs = {"tp_path": ("qwen3-8b", True, None, None, False),
             "tp_bf16_path": ("nemotron-4-15b", False, None, None, False),
             "ep_path": ("moonshot-v1-16b-a3b", False, EP_LAYERS, ep | {"dtype": "float32"}, False),
-            # the W4A8 MoE against the same a2a function on a one-rank mesh
+            # the W4A8 MoE against the same function on a one-rank mesh
             "ep_w4a8_path": ("moonshot-v1-16b-a3b", True, EP_LAYERS, ep, True)}
     t0 = time.perf_counter()
     one = _one_device(dev, runs, smoke)
@@ -3632,22 +3860,140 @@ def phase_sharded_serving(dev, smoke=False):
           flush=True)
     jobs = [(_ep_layer, (dev.type, smoke, ep))] + [
         (_tp_decode, (arch, quantize, layers, fields, dev.type, smoke))
-        for arch, quantize, layers, fields, _ in runs.values()]
+        for arch, quantize, layers, fields, _ in runs.values()] + [
+        (_cell_decode, (name, dev.type, smoke, one[name]["tokens"]))
+        for name in _cell_names(smoke)]
     t0 = time.perf_counter()
     res = M.spawn(_rank_jobs, 1, 2, device=dev.type, args=(jobs,))
     print(f"chip_smoke: sharded serving, the (1, 2) world {time.perf_counter() - t0:.1f} s",
           flush=True)
-    ranks = {name: [r[i + 1] for r in res] for i, name in enumerate(runs)}
+    names = list(runs) + _cell_names(smoke)
+    ranks = {name: [r[i + 1] for r in res] for i, name in enumerate(names)}
     out = check_tp_path(dev, one["tp_path"], ranks["tp_path"])
     out.update(check_tp_bf16_path(one["tp_bf16_path"], ranks["tp_bf16_path"]))
     out.update(check_ep_path(dev, [r[0] for r in res], one, ranks))
+    out.update(check_cell_paths(dev, one, ranks))
+    t0 = time.perf_counter()
+    dryrun_path(ranks, smoke)
+    print(f"chip_smoke: dryrun_path {time.perf_counter() - t0:.1f} s", flush=True)
     return out
+
+
+def check_cell_paths(dev, one, ranks):
+    """The launch cells on (1, 2) against one device, each rank's decode
+    teacher-forced on the one-device tokens: mamba2-1.3b, zamba2-7b and
+    whisper-large-v3 at full width in bf16 (``_hold_forced``: the logits
+    of the prefill and of every step within CELL_LOGIT_ATOL, read on the
+    card and printed; a rank's partial sums, norms and per-head products
+    round in other orders than one device's, which moved mamba2's argmax
+    at margins of 1-4 ulps of the top logit; no quantized kernel
+    launched), and Qwen3-8B's ``w4a8+kvq8`` decode cell at 8 layers (the
+    W4A8 + LRU target over a dense int8 KV cache: logits bit for bit one
+    device's, K1 scaled and int32, K2 once a layer per forward and K7 once
+    a layer per decode step on every rank).  Each prints its collectives
+    per decode step."""
+    out, failed = {}, []
+    for name in [n for n in CELLS if n in ranks]:
+        try:
+            out[name] = _check_cell(dev, name, one[name], ranks[name])
+        except AssertionError as e:  # every cell reported before any failure is raised
+            failed.append(str(e))
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return out
+
+
+def _check_cell(dev, name, one, ranks):
+    quant = CELLS[name][2]
+    got = _mesh_report(name, one, ranks)
+    emit(phase=f"{name}_collectives", prefill=[r["comm_prefill"] for r in ranks],
+         per_decode_step=[r["comm_per_step"] for r in ranks])
+    launches = ranks[0]["launches"]
+    if quant is None:
+        _no_quantized(name, launches)
+        _hold_forced(name, got, one, CELL_LOGIT_ATOL[name])
+        return launches
+    for r in ranks if dev.type == "cuda" else ():
+        n = r["launches"]
+        need = {"w4a8_matmul", "w4a8_matmul_int32", "block_rotate", "decode_attention_int8"}
+        if not need <= {k for k, v in n.items() if v}:
+            raise AssertionError(f"{name}: rank {r['note']['rank']} launched {n}")
+        if n["block_rotate"] != r["layers"] * r["forwards"] or \
+                n["decode_attention_int8"] != r["layers"] * CELL_STEPS:
+            raise AssertionError(f"{name}: {n} for {r['layers']} layers x "
+                                 f"{r['forwards']} forwards")
+    if not torch.equal(got["logits"], one["logits"]):
+        raise AssertionError(f"{name}: the (1, 2) logits differ from one device's: max "
+                             f"{float((got['logits'] - one['logits']).abs().max())}")
+    _hold_rows(name, got, one)
+    return launches
+
+
+def _by_kind(comm):
+    """{kind: (calls, bytes)} of a mesh's ``comm`` counters."""
+    from repro_torch.launch.dryrun import KINDS
+
+    return {KINDS[k]: (round(comm.get(f"{k}_calls", 0), 6), round(comm.get(f"{k}_bytes", 0), 6))
+            for k in KINDS if comm.get(f"{k}_calls")}
+
+
+def dryrun_path(ranks, smoke=False):
+    """The dry-run (``launch/dryrun.py``) of the launch cells on the meta
+    (1, 2) mesh: each cell's prefill and decode step must log the
+    collectives (kind, calls, bytes) every rank of the real world ran
+    (gated); the dry-run's roofline time of a decode step is printed beside
+    the step's measured wall (not gated: H100 SXM5 datasheet constants
+    against a card the two ranks share over gloo).  Then the dry-run CLI
+    on the production meshes (DRYRUN_GRID: a decode cell of three families,
+    both meshes, no calibration; the whole grid's wall is in PERF.md):
+    exit 0."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.common import ShapeConfig
+
+    mesh = make_mesh("meta", 1, 2)
+    bad = []
+    for name in _cell_names(smoke):
+        cfg, quant = _cell_cfg(name, smoke)
+        pre = dryrun.measure_cell(cfg, ShapeConfig("prefill", TP_PROMPT, TP_BATCH, "prefill"),
+                                  mesh, False, quant, s_max=CELL_S_MAX)
+        dec = dryrun.measure_cell(cfg, ShapeConfig("decode", TP_PROMPT, TP_BATCH, "decode"),
+                                  mesh, False, quant)
+        want = {kind: ({k: (c["count"], c["bytes"]) for k, c in rec["collectives"].items()})
+                for kind, rec in (("prefill", pre), ("decode", dec))}
+        r = dryrun.roofline_terms(dec["flops"], dec["bytes"], dec["collectives"])
+        for rank in ranks[name]:
+            got = {"prefill": _by_kind(rank["comm_prefill"]),
+                   "decode": _by_kind(rank["comm_per_step"])}
+            if got != want:
+                bad.append({"cell": name, "rank": rank["note"]["rank"], "meta": want,
+                            "world": got})
+        emit(phase="dryrun_path", cell=name, collectives=want,
+             predicted_step_ms={k: r[f"t_{k}"] * 1e3
+                                for k in ("compute", "memory", "collective")},
+             predicted_roofline_ms=max(r["t_compute"], r["t_memory"], r["t_collective"]) * 1e3,
+             measured_step_ms=[rank["step_ms"] for rank in ranks[name]],
+             trace_s=pre["trace_s"] + dec["trace_s"])
+    if bad:
+        raise AssertionError(f"dryrun_path: the meta trace's collectives differ from the "
+                             f"world's: {bad}")
+    if smoke:
+        return
+    t0 = time.perf_counter()
+    failed = 0
+    for arch in DRYRUN_GRID:
+        failed += dryrun.main(["--arch", arch, "--shape", "decode_32k", "--both-meshes",
+                               "--no-calibrate"])
+    emit(phase="dryrun_grid", cells=len(DRYRUN_GRID) * 2, failed=failed,
+         wall_s=time.perf_counter() - t0)
+    if failed:
+        raise AssertionError(f"dryrun_path: {failed} dry-run grid calls failed")
 
 
 def check_tp_path(dev, one, ranks):
     """Qwen3-8B W4A8 + LRU at full width and depth, one device and then on
     mesh (1, 2) (two ranks sharing the card over gloo): prefill 4 x 64 and
-    32 greedy steps over the dense cache.  The sharded logits must equal
+    TP_STEPS greedy steps over the dense cache.  The sharded logits must equal
     the one-device run's bit for bit and so the tokens; K1 (scaled on the
     column shards, int32 on the row shards) and K2 launch on every rank, K2
     once per layer of each forward."""
@@ -3928,6 +4274,9 @@ def main(argv=None) -> int:
     ap.add_argument("--cpu-dry-run", action="store_true",
                     help="the mesh phases at smoke size on the CPU (no card, no build; "
                          "checks the phases' own logic), no result line")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="the kernels' build and the mesh phases alone on the card, "
+                         "no result line")
     args = ap.parse_args(argv)
     if args.cpu_dry_run:
         for phase in MESH_PHASES.values():
@@ -3950,6 +4299,12 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     phase_build()
+    if args.mesh_only:
+        for name, phase in MESH_PHASES.items():
+            t_phase = time.perf_counter()
+            phase(dev)
+            print(f"chip_smoke: {name} {time.perf_counter() - t_phase:.1f} s", flush=True)
+        return 0
     summary = phase_kernels(dev, SEED)
     launches = {}
     main_report = {}
@@ -4001,6 +4356,9 @@ def main(argv=None) -> int:
     launches.update(phase_nemotron_path(dev, profile=args.profile))
     phase_card_vs_cpu(dev, SEED)
     phase_families_card_vs_cpu(dev)
+    t_phase = time.perf_counter()
+    launches["kvq8_path"] = phase_kvq8_path(dev)
+    print(f"chip_smoke: kvq8_path {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_train = time.perf_counter()
     for phase, kw in ((phase_train_path, {"profile": args.profile}),
                       (phase_draft_train_path, {"profile": args.profile}),

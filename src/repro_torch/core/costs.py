@@ -10,6 +10,14 @@ model's shapes, its weights as stored and the KV the program touches.
 A model here is anything with ``.cfg`` (a ``ModelConfig``) and ``.params``
 (its params tree); a store is one paged KV pool's dict of device arrays,
 each (L, P, page_size, ...), as ``paged_cache.device_pool_store`` makes it.
+
+``w4a8_bytes``, ``rotate_bytes`` and ``decode_int8_bytes`` are the bytes
+one call of K1, K2 and K7 moves, each input read once and each output
+written once, in the forms the kernels read them: the int4 weight packed
+two to a byte with its float32 scales, the int8 cache with its float32
+scales.  The dry-run (``launch/dryrun.py``) charges them to a kernel call
+traced on meta tensors in place of the plain version's ops (which widen
+the weight and the cache to float).
 """
 from __future__ import annotations
 
@@ -19,8 +27,28 @@ from typing import Dict
 import numpy as np
 import torch
 
-__all__ = ["tensor_bytes", "linear_params", "kv_token_bytes", "program_cost", "window_cost",
-           "prefill_cost", "compaction_cost"]
+__all__ = ["w4a8_bytes", "rotate_bytes", "decode_int8_bytes", "tensor_bytes", "linear_params",
+           "kv_token_bytes", "program_cost", "window_cost", "prefill_cost", "compaction_cost"]
+
+
+def w4a8_bytes(m: int, k: int, n: int) -> int:
+    """K1 on (M, K) int8 codes and a (K, N) int4 weight: the codes, the
+    packed weight (K * N / 2), the row and channel scales (float32) and
+    the (M, N) float32 (or int32) output."""
+    return m * k + k * n // 2 + 4 * m + 4 * n + 4 * m * n
+
+
+def rotate_bytes(m: int, n: int, esize: int) -> int:
+    """K2 on M rows of n elements of ``esize`` bytes: read and written."""
+    return 2 * m * n * esize
+
+
+def decode_int8_bytes(b: int, s: int, kvs: int, g: int, hd: int, q_esize: int) -> int:
+    """K7 for (B, KVS, G, hd) queries over S cached tokens: the queries, the
+    int8 K and V, their float32 per-(token, head) scales, the length and
+    the float32 output."""
+    return (b * kvs * g * hd * q_esize + 2 * b * s * kvs * hd + 2 * 4 * b * s * kvs + 4
+            + 4 * b * kvs * g * hd)
 
 
 def tensor_bytes(tree) -> int:

@@ -11,6 +11,13 @@ named by a hash of the sources and flags, and is built at first use.
 where it launches its kernel and nowhere else, so a caller can show that
 a run went through the kernels (set it to zero with ``launches.clear()``).
 
+``plain(name, device, nbytes)`` is the context a wrapper runs its plain
+version in: nothing for CPU tensors; for meta tensors (the dry-run's
+shape-only trace) it is ``charge(name, nbytes)``, which the dry-run
+(``launch/dryrun.py``) sets while it traces: it counts the bytes the
+kernel itself would move (``core/costs.py``) and skips the plain
+version's own ops.  Meta tensors launch nothing and count no launch.
+
 ``scratch`` hands the split-K and split-sequence kernels their workspaces
 and arrival counters: allocated once per (device, stream, name), grown
 when a call needs more, never filled per call (the kernels re-arm the
@@ -19,6 +26,7 @@ counters).
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -32,9 +40,9 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-__all__ = ["launches", "nvcc", "build", "lib", "check", "dtype_code", "stream_ptr",
-           "require_cuda", "sm_count", "scratch", "Plan", "token_tiles", "split_k_elems",
-           "attn_splits", "attn_scratch"]
+__all__ = ["launches", "charge", "plain", "nvcc", "build", "lib", "check", "dtype_code",
+           "stream_ptr", "require_cuda", "sm_count", "scratch", "Plan", "token_tiles",
+           "split_k_elems", "attn_splits", "attn_scratch"]
 
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build"
@@ -44,6 +52,8 @@ NVCC_FLAGS = (
 )
 
 launches: "collections.Counter[str]" = collections.Counter()
+# set by the dry-run: charge(name, nbytes) -> the context of a kernel call on meta tensors
+charge = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -155,6 +165,15 @@ def dtype_code(dtype: torch.dtype) -> int:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def plain(name: str, device: torch.device, nbytes: float):
+    """The context of a kernel's plain version on ``device``: on meta,
+    ``charge`` (if set) counts the kernel's own bytes and skips the plain
+    version's ops; on the CPU nothing."""
+    if device.type != "meta" or charge is None:
+        return contextlib.nullcontext()
+    return charge(name, nbytes)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> torch.device:

@@ -5,14 +5,17 @@ Replaces the Pallas kernel
 ``repro/kernels/decode_attn.py:decode_attention_int8_pallas``: one decoded
 token's attention over a contiguous int8 KV cache with per-(token, head)
 f32 scales, the K scale folded into the scores and the V scale into the
-softmax weights.  No serving path of the reference calls it, nor of the
-port; chip_smoke.py and the card tests hold it against its plain version.
-Launches count as ``decode_attention_int8``.
+softmax weights.  ``models/layers.attend`` runs it for every one-token
+step over a dense int8 cache (``ModelConfig.kv_quant``) on the card, the
+step the reference's docstring names it for.  On meta tensors (the
+dry-run) it takes the plain version, charged K7's bytes for the whole
+cache.  Launches count as ``decode_attention_int8``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.costs import decode_int8_bytes
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import decode_attn_int8_ref
 
@@ -37,8 +40,10 @@ def decode_attention_int8(
     s = k_cache.shape[1]
     if s % min(block_s, s):
         raise ValueError(f"decode_attention_int8: block_s {block_s} does not tile S={s}")
-    if q.device.type == "cpu":
-        return decode_attn_int8_ref(q, k_cache, k_scale, v_cache, v_scale, length)
+    if q.device.type in ("cpu", "meta"):
+        with _lib.plain("decode_attention_int8", q.device,
+                        decode_int8_bytes(b, s, kvs, g, hd, q.element_size())):
+            return decode_attn_int8_ref(q, k_cache, k_scale, v_cache, v_scale, length)
     qf = (q if q.dtype in (torch.float32, torch.bfloat16) else q.float()).contiguous()
     dev = _lib.require_cuda("decode_attention_int8", qf, k_cache, k_scale, v_cache, v_scale,
                             length)

@@ -5,7 +5,8 @@ Replaces the Pallas kernel ``repro/kernels/fwht.py:block_rotate_pallas``
 (``block_rotate``: one stage) and the stage composition of
 ``repro/kernels/ops.py:lru_rotate`` (``rotate_plan``: a whole
 RotationPlan, exact, tiled or two_block, in one launch).  Both count their
-launches in ``_lib.launches["block_rotate"]``.
+launches in ``_lib.launches["block_rotate"]``.  ``rotate_plan`` on meta
+tensors (the dry-run) takes the plain version, charged K2's bytes.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ import torch
 
 from repro_torch.core import hadamard
 from repro_torch.core import rotation as rot
+from repro_torch.core.costs import rotate_bytes
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import block_rotate_ref, rotate_plan_ref
 
@@ -118,7 +120,9 @@ def rotate_plan(x: torch.Tensor, plan: rot.RotationPlan, transpose: bool = False
     them: one launch on the card."""
     if x.shape[-1] != plan.n:
         raise ValueError(f"rotate_plan: last dim {x.shape[-1]} != plan.n {plan.n}")
-    if x.device.type == "cpu":
-        return rotate_plan_ref(x, plan, transpose=transpose)
+    if x.device.type in ("cpu", "meta"):
+        with _lib.plain("block_rotate", x.device,
+                        rotate_bytes(x.numel() // plan.n, plan.n, x.element_size())):
+            return rotate_plan_ref(x, plan, transpose=transpose)
     kind = "single" if plan.kind == "exact" else plan.kind
     return _launch(x, plan.m, plan.k, kind, transpose)

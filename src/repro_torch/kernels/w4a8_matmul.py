@@ -9,7 +9,8 @@ of 128 and N of 16; smaller or ragged weights are zero-padded to that).
 ``w4a8_matmul`` takes either layout: a 2-D (K/2, N) weight packed as the
 reference packs it (``core.quantization.pack_int4``), reordered on the fly,
 or the 3-D prepacked one.  The model's weights are prepacked, so the
-serving path reorders nothing.
+serving path reorders nothing.  Meta tensors (the dry-run) take the plain
+version, charged K1's bytes (``_lib.plain``).
 
 ``w4a8_matmul_int32`` is the same kernel with its unscaled epilogue: the
 int32 accumulators xq @ unpack_int4(wp), which a row-parallel shard's
@@ -22,6 +23,7 @@ import functools
 
 import torch
 
+from repro_torch.core.costs import w4a8_bytes
 from repro_torch.core.quantization import pack_int4, unpack_int4
 from repro_torch.kernels import _lib
 from repro_torch.kernels.ref import w4a8_matmul_int32_ref, w4a8_matmul_ref2
@@ -92,8 +94,9 @@ def w4a8_matmul(xq: torch.Tensor, wp: torch.Tensor, sx: torch.Tensor,
     -> (M, N) f32."""
     k = xq.shape[1]
     n = sw.shape[-1]
-    if xq.device.type == "cpu":
-        return w4a8_matmul_ref2(xq, unprepack(wp, k, n) if wp.dim() == 3 else wp, sx, sw)
+    if xq.device.type in ("cpu", "meta"):
+        with _lib.plain("w4a8_matmul", xq.device, w4a8_bytes(xq.shape[0], k, n)):
+            return w4a8_matmul_ref2(xq, unprepack(wp, k, n) if wp.dim() == 3 else wp, sx, sw)
     return _launch("w4a8_matmul", xq, wp, n, sx, sw)
 
 
@@ -101,8 +104,9 @@ def w4a8_matmul_int32(xq: torch.Tensor, wp: torch.Tensor, n: int) -> torch.Tenso
     """acc = xq @ unpack_int4(wp) as int32 (M, N), the kernel's unscaled
     epilogue; wp as in ``w4a8_matmul`` for a weight of N columns."""
     k = xq.shape[1]
-    if xq.device.type == "cpu":
-        return w4a8_matmul_int32_ref(xq, unprepack(wp, k, n) if wp.dim() == 3 else wp)
+    if xq.device.type in ("cpu", "meta"):
+        with _lib.plain("w4a8_matmul_int32", xq.device, w4a8_bytes(xq.shape[0], k, n)):
+            return w4a8_matmul_int32_ref(xq, unprepack(wp, k, n) if wp.dim() == 3 else wp)
     return _launch("w4a8_matmul_int32", xq, wp, n, None, None)
 
 

@@ -37,9 +37,15 @@ parent gets every rank's return value.  A real world starts under
 ``make_production_mesh`` builds the 16 x 16 or 2 x 16 x 16 mesh from a
 world of 256 or 512 ranks.
 
-``comm`` counts the collectives a rank ran (calls, bytes, host seconds
-including staging), so a caller can report them per step; ``clear()`` it
-before the span to be measured."""
+``comm`` counts the collectives a rank ran (calls and bytes in all and
+per kind, host seconds including staging), so a caller can report them
+per step; ``clear()`` it before the span to be measured.
+
+``make_mesh("meta", data, model[, pod])`` is the dry-run's abstract mesh:
+rank 0 of that shape on the meta device with no process group.  Its
+collectives return meta tensors of the shapes the real ones return and
+count in ``comm`` exactly as the real ones do, so a trace on meta
+tensors (``launch/dryrun.py``) logs the collectives of rank 0's step."""
 from __future__ import annotations
 
 import collections
@@ -105,6 +111,8 @@ class DeviceMesh:
         self.transport = transport
         self.init_method = init_method
         self.comm: "collections.Counter[str]" = collections.Counter()
+        # (kind, axes, axis size, bytes) of each collective while a list (the dry-run's)
+        self.log: Optional[List[Tuple[str, Tuple[str, ...], int, int]]] = None
 
     def __repr__(self) -> str:
         return (f"DeviceMesh(shape={self.shape}, rank={self.rank}, coords={self.coords}, "
@@ -146,10 +154,19 @@ class DeviceMesh:
 
     # -- collectives (no autograd; see the module functions for that) -----
 
-    def _count(self, name: str, t: torch.Tensor, t0: float) -> None:
+    @property
+    def meta(self) -> bool:
+        """The dry-run's abstract mesh: collectives only shape and count."""
+        return self.device.type == "meta"
+
+    def _count(self, name: str, t: torch.Tensor, t0: float, axis: Axis) -> None:
+        nbytes = t.numel() * t.element_size()
+        if self.log is not None:
+            self.log.append((name, _as_axes(axis), self.axis_size(axis), nbytes))
         self.comm["calls"] += 1
         self.comm[f"{name}_calls"] += 1
-        self.comm["bytes"] += t.numel() * t.element_size()
+        self.comm["bytes"] += nbytes
+        self.comm[f"{name}_bytes"] += nbytes
         self.comm["seconds"] += time.perf_counter() - t0
 
     def all_reduce(self, t: torch.Tensor, axis: Axis, op: str = "sum") -> torch.Tensor:
@@ -159,8 +176,9 @@ class DeviceMesh:
         if self.axis_size(axis) == 1:
             return out
         t0 = time.perf_counter()
-        dist.all_reduce(out, op=_OPS[op], group=g)
-        self._count("all_reduce", out, t0)
+        if not self.meta:
+            dist.all_reduce(out, op=_OPS[op], group=g)
+        self._count("all_reduce", out, t0, axis)
         return out
 
     def all_gather(self, t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
@@ -172,8 +190,9 @@ class DeviceMesh:
         t0 = time.perf_counter()
         src = t.movedim(dim, 0).contiguous()
         out = torch.empty((n * src.shape[0],) + src.shape[1:], dtype=t.dtype, device=t.device)
-        _ALL_GATHER(out, src, group=self.group(axis))
-        self._count("all_gather", out, t0)
+        if not self.meta:
+            _ALL_GATHER(out, src, group=self.group(axis))
+        self._count("all_gather", out, t0, axis)
         return out.movedim(0, dim).contiguous()
 
     def reduce_scatter(self, t: torch.Tensor, axis: Axis, dim: int) -> torch.Tensor:
@@ -184,8 +203,9 @@ class DeviceMesh:
         t0 = time.perf_counter()
         src = t.movedim(dim, 0).contiguous()
         out = torch.empty((src.shape[0] // n,) + src.shape[1:], dtype=t.dtype, device=t.device)
-        _REDUCE_SCATTER(out, src, group=self.group(axis))
-        self._count("reduce_scatter", src, t0)
+        if not self.meta:
+            _REDUCE_SCATTER(out, src, group=self.group(axis))
+        self._count("reduce_scatter", src, t0, axis)
         return out.movedim(0, dim).contiguous()
 
     def all_to_all(self, t: torch.Tensor, axis: Axis) -> torch.Tensor:
@@ -197,12 +217,13 @@ class DeviceMesh:
         t0 = time.perf_counter()
         src = t.contiguous()
         out = torch.empty_like(src)
-        dist.all_to_all_single(out, src, group=self.group(axis))
-        self._count("all_to_all", src, t0)
+        if not self.meta:
+            dist.all_to_all_single(out, src, group=self.group(axis))
+        self._count("all_to_all", src, t0, axis)
         return out
 
     def barrier(self) -> None:
-        if self.size > 1:
+        if self.size > 1 and not self.meta:
             dist.barrier()
 
 
@@ -400,9 +421,12 @@ def make_mesh(device="cuda", data: int = 1, model: int = 1, pod: Optional[int] =
               ) -> DeviceMesh:
     """The mesh of this rank on ``device``: one device when data x model
     (x pod) is 1 and no process group is up, else over the initialized
-    process group, whose world size must be the mesh's."""
+    process group, whose world size must be the mesh's.  On ``"meta"``,
+    the dry-run's abstract mesh of any shape: rank 0, no process group."""
     shape = _shape(data, model, pod)
     n = data * model * (pod or 1)
+    if torch.device(device).type == "meta":
+        return DeviceMesh("meta", shape, transport="meta")
     if not dist.is_available() or not dist.is_initialized():
         if n != 1:
             raise RuntimeError(
@@ -488,10 +512,11 @@ def _rank_entry(rank: int, fn: Callable, shape: Dict[str, int], device, root: st
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, data: int = 1, model: int = 1, device="cpu", args: Sequence[Any] = (),
+def spawn(fn: Callable, data: int = 1, model: int = 1, device="cuda", args: Sequence[Any] = (),
           pod: Optional[int] = None) -> List[Any]:
     """Run ``fn(mesh, *args)`` on every rank of a local (pod x) data x model
-    world on ``device`` and return the ranks' results in rank order.  A
+    world on ``device`` (the card unless the caller names another) and
+    return the ranks' results in rank order.  A
     rank that raises fails the call (torch.multiprocessing re-raises in the
     parent).  ``fn`` and ``args`` must pickle (a module-level function)."""
     import torch.multiprocessing as mp

@@ -11,7 +11,7 @@ this one saved and the other way round.  It runs on the card unless
 ``--device cpu`` (or ``device="cpu"``) is given, and never falls back to
 the CPU when the card is missing.
 
-On a mesh of more than one rank (the attention families) every rank runs
+On a mesh of more than one rank (every family) every rank runs
 the Trainer: the params are initialized whole from the seed and cut to the
 rank's shard (``lm.param_specs``), each data rank takes its rows of the
 global batch (``SyntheticLMDataset.host_slice``), the step is the sharded
@@ -129,7 +129,8 @@ class Trainer:
         tensors (on a mesh, the global batch's)."""
         tokens = self.batch(self.step)
         params = tree_map(lambda t: t.detach().requires_grad_(), self.params)
-        kw = {"frames": self.frames(self.step)} if self.cfg.family is Family.AUDIO else {}
+        kw = ({"frames": lm.local_rows(self.frames(self.step), self.mesh)}
+              if self.cfg.family is Family.AUDIO else {})
         if self.mesh is not None:
             kw["mesh"] = self.mesh
         loss = lm.loss_fn(params, self.cfg, tokens, **kw)

@@ -85,7 +85,10 @@ def specs_to_reference(specs: Params, cfg: ModelConfig) -> Params:
         if not layers:
             out.pop(key, None)
             continue
-        out[key] = _prepend(layers[0])
+        first = layers[0]
+        if cfg.family is Family.HYBRID and key == "layers":  # (ng, attn_every, ...)
+            first = _prepend(first[0])
+        out[key] = _prepend(first)
     return out
 
 

@@ -9,14 +9,17 @@ so a speculative verify scores a row exactly as a one-token step does.
 ``attend`` is the one attention route of all three forwards (the W4A8
 target, the BVQ draft, the bf16 ``lm.apply_lm``): a paged pool runs
 ``kernels.paged_attn.paged_attention`` (the CUDA kernel on the card, its
-plain version on the CPU); a dense cache and the cache-free case run the
-plain torch ``decode_attention`` / ``flash_attention``, as they are plain
-jnp in the reference.  The dense blocks' linears are plain torch matmuls
-(``linear``), as the reference's are ``einsum``s outside any Pallas
-kernel.  The MoE block runs the reference's single-device dense combine
-(``moe_apply_dense``: every token through every expert, gated by the
-softmax of its top-k router logits) as batched torch products over the
-expert axis, in the same fixed row blocks.
+plain version on the CPU); a dense fp cache and the cache-free case run
+the plain torch ``decode_attention`` / ``flash_attention``, as they are
+plain jnp in the reference; a dense int8 cache (``kv_quant``) runs a
+one-token step through K7 (``kernels.decode_attn``) on the card and the
+reference's bfloat16 ``_decode_attention`` math on the CPU.  The dense
+blocks' linears are plain torch matmuls (``linear``), as the reference's
+are ``einsum``s outside any Pallas kernel.  The MoE block runs the
+reference's single-device dense combine (``moe_apply_dense``: every token
+through every expert, gated by the softmax of its top-k router logits) as
+batched torch products over the expert axis, in the same fixed row
+blocks.
 
 On a mesh (``launch/mesh.DeviceMesh``, one process per rank) every block
 takes its rank's shard of the parameters (``*_specs`` give the layout, the
@@ -32,7 +35,11 @@ does not divide runs attention replicated over ``model``.  ``fsdp=True``
 shards the non-TP weight axis over ``data`` and gathers it before use.
 The collectives carry their Megatron backward pairs, so training runs
 through the same code.  ``moe_apply_a2a`` is the GShard expert-parallel
-dispatch over the ``model`` group's all-to-all."""
+dispatch over the ``model`` group's all-to-all.
+
+On meta tensors (the dry-run's shape-only trace) ``linear``,
+``flash_attention`` and ``moe_apply_dense`` take every row in one block:
+the same products, traced once."""
 from __future__ import annotations
 
 import dataclasses
@@ -44,6 +51,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.quantization import div_scalar
+from repro_torch.kernels.decode_attn import decode_attention_int8
 from repro_torch.kernels.paged_attn import paged_attention
 from repro_torch.launch import mesh as M
 from repro_torch.models.common import ModelConfig
@@ -69,16 +77,22 @@ __all__ = [
     "moe_capacity",
     "topk_dispatch",
     "embed_lookup",
+    "embed_tokens",
+    "lm_head",
     "virtual_heads",
     "linear",
     "attention_init",
     "attention_apply",
+    "cross_kv",
+    "enter_states",
     "mlp_init",
     "mlp_apply",
     "topk_gates",
     "moe_apply_dense",
     "moe_apply",
     "attend",
+    "decode_attention",
+    "decode_attention_int8_step",
     "advance_cache",
     "flash_attention",
     "PagedCache",
@@ -301,8 +315,12 @@ def flash_attention(
     so every product has one shape however many rows the call has: a CUDA
     GEMM picks its kernel by shape, and a row's bits then depended on the
     call's row count (a prefix-cache hit's 7-15-row tail extend against the
-    full prefill, on an H100).  The padded rows are dropped."""
+    full prefill, on an H100).  The padded rows are dropped.  Meta tensors
+    (the dry-run's trace) run every row in one block: the same products,
+    traced once."""
     sq = q.shape[1]
+    if q.device.type == "meta":
+        return _flash_block(q, k, v, causal, q_offset, kv_chunk)
     outs = []
     for i in range(0, sq, ROW_BLOCK):
         qb = q[:, i:i + ROW_BLOCK]
@@ -350,25 +368,50 @@ def _flash_block(q, k, v, causal: bool, q_offset: int, kv_chunk: int) -> torch.T
 
 def decode_attention(
     q: torch.Tensor,  # (B, 1, H, hd)
-    cache_k: torch.Tensor,  # (B, S_max, hkv, hd)
+    cache_k: torch.Tensor,  # (B, S_max, hkv, hd): model dtype or int8
     cache_v: torch.Tensor,
     length: int,  # valid prefix INCLUDING the new token
+    k_scale: Optional[torch.Tensor] = None,  # (B, S_max, hkv, 1) f32 for an int8 cache
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """One token's attention over a dense cache (the reference's
-    ``_decode_attention`` for fp caches)."""
+    """One token's attention over a dense cache, the reference's
+    ``_decode_attention``: dots in bfloat16 for a bfloat16 cache and for
+    an int8 one (in a float32 model too, as the reference computes it),
+    else float32, accumulated in float32; an int8 cache's K scale
+    multiplies the scores and its V scale the softmax weights."""
     b, sq, h, hd = q.shape
     s_max, hkv = cache_k.shape[1], cache_k.shape[2]
     g = h // hkv
     scale = 1.0 / math.sqrt(hd)
-    dot_dt = torch.bfloat16 if cache_k.dtype == torch.bfloat16 else torch.float32
+    low = k_scale is not None or cache_k.dtype == torch.bfloat16
+    dot_dt = torch.bfloat16 if low else torch.float32
     qf = (q.reshape(b, sq, hkv, g, hd).float() * scale).to(dot_dt).float()
     scores = torch.einsum("bqkgh,bskh->bkgqs", qf, cache_k.to(dot_dt).float())
+    if k_scale is not None:
+        scores = scores * k_scale[..., 0].permute(0, 2, 1)[:, :, None, None, :]
     valid = torch.arange(s_max, device=q.device) < length
     scores = torch.where(valid, scores, torch.full_like(scores, -1e30))
     p = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        p = p * v_scale[..., 0].permute(0, 2, 1)[:, :, None, None, :]
     out = torch.einsum("bkgqs,bskh->bkgqh", p.to(dot_dt).float(), cache_v.to(dot_dt).float())
     out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
     return out.to(q.dtype)
+
+
+def decode_attention_int8_step(q: torch.Tensor, ck, cv, ks, vs, length: int) -> torch.Tensor:
+    """One token's attention over a dense int8 cache through K7
+    (``kernels.decode_attn``; on the card the CUDA kernel, on meta tensors
+    its plain version, charged the kernel's bytes): q (B, 1, H, hd) as
+    (B, KVS, G, hd), the scales (B, S, KVS, 1) as (B, S, KVS).  K7 keeps
+    float32 throughout where the CPU route (``decode_attention``) rounds
+    the dots' operands to bfloat16 as the reference does."""
+    b, _, h, hd = q.shape
+    kvs = ck.shape[2]
+    n = torch.tensor([length], dtype=torch.int32, device=q.device)
+    out = decode_attention_int8(q.reshape(b, kvs, h // kvs, hd), ck, ks[..., 0], cv,
+                                vs[..., 0], n)
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 @dataclasses.dataclass
@@ -488,9 +531,17 @@ def attend(i: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: Opt
            offset, paged) -> torch.Tensor:
     """Layer i's attention of post-rope (B, S, heads, hd) q / k / v, with
     ``(offset, paged)`` from ``forward_cache_ctx``: through the paged pool
-    (fp or int8 stores, causal or tree window), into a dense cache (a
-    one-token step attends with ``decode_attention``, a wider one with
-    ``flash_attention``), or cache-free causal attention."""
+    (fp or int8 stores, causal or tree window), into a dense cache, or
+    cache-free causal attention.
+
+    A dense cache holding ``k_scale`` / ``v_scale`` is int8
+    (``ModelConfig.kv_quant``): the new tokens are written as codes and
+    per-(token, head) scales (``kv_quantize``).  A one-token step attends
+    with K7 on the card (and on meta tensors), with the reference's
+    ``_decode_attention`` on the CPU; a wider step (prefill, extend)
+    dequantizes the whole buffer and runs ``flash_attention`` over it, as
+    the reference does.  An fp dense cache runs ``decode_attention`` /
+    ``flash_attention``."""
     if paged is not None:
         table, tree_mask = paged
         attn = cache["attn"]
@@ -504,12 +555,25 @@ def attend(i: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: Opt
     if cache is None:
         return flash_attention(q, k, v, causal=True)
     s = q.shape[1]
-    ck, cv = cache["attn"]["k"][i], cache["attn"]["v"][i]
-    ck[:, offset:offset + s] = k.to(ck.dtype)
-    cv[:, offset:offset + s] = v.to(cv.dtype)
+    attn = cache["attn"]
+    ck, cv = attn["k"][i], attn["v"][i]
+    if "k_scale" not in attn:
+        ck[:, offset:offset + s] = k.to(ck.dtype)
+        cv[:, offset:offset + s] = v.to(cv.dtype)
+        if s == 1:
+            return decode_attention(q, ck, cv, offset + 1)
+        return flash_attention(q, ck, cv, causal=True, q_offset=offset)
+    ks, vs = attn["k_scale"][i], attn["v_scale"][i]
+    for buf, sbuf, t in ((ck, ks, k), (cv, vs, v)):
+        codes, sc = kv_quantize(t)
+        buf[:, offset:offset + s] = codes
+        sbuf[:, offset:offset + s] = sc
     if s == 1:
-        return decode_attention(q, ck, cv, offset + 1)
-    return flash_attention(q, ck, cv, causal=True, q_offset=offset)
+        if q.device.type == "cpu":
+            return decode_attention(q, ck, cv, offset + 1, ks, vs)
+        return decode_attention_int8_step(q, ck, cv, ks, vs, offset + 1)
+    kf, vf = ((buf.float() * sbuf).to(q.dtype) for buf, sbuf in ((ck, ks), (cv, vs)))
+    return flash_attention(q, kf, vf, causal=True, q_offset=offset)
 
 
 def advance_cache(cache: Optional[dict], offset, s: int) -> Optional[dict]:
@@ -532,7 +596,8 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     matmul instead: the weight's gradient is then one GEMM accumulated in
     float32, not a sum of per-block products in the weight's dtype, and
     training needs no row invariance."""
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+    if (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)) or \
+            x.device.type == "meta":  # the dry-run's trace: one product
         return x @ w
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -546,12 +611,15 @@ def linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def attention_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, cache: Optional[dict],
-                    offset, positions: torch.Tensor, paged, shard: Shard = Shard()
-                    ) -> torch.Tensor:
+                    offset, positions: torch.Tensor, paged, shard: Shard = Shard(), *,
+                    causal: bool = True, use_rope: bool = True, kv=None) -> torch.Tensor:
     """The dense family's attention block over the normed input x (B, S,
     d): q / k / v from the (d, heads, hd) weights, rope, layer i's
     ``attend``, and the (heads, hd, d) output projection (the reference's
-    ``einsum``s as ``linear``s over the weights' flat views).
+    ``einsum``s as ``linear``s over the weights' flat views).  Whisper's
+    blocks take the reference's switches: ``causal=False`` without a
+    cache (the encoder), ``use_rope=False``, and ``kv``, K / V given in
+    the rank's heads (``cross_kv``: cross-attention, never cached here).
 
     On a mesh ``p`` is this rank's shard: with tensor-parallel attention
     the rank's q heads, the kv heads its virtual heads repeat (wk / wv are
@@ -561,26 +629,43 @@ def attention_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, i: int, cache: O
     sp, and each rank keeps its own rows."""
     specs = attention_specs(cfg, shard.tp)
     w = {k: shard.full(v, specs[k]) for k, v in p.items()}
+    how = (causal, use_rope, kv)
     if attn_tp_enabled(cfg, shard.tp):
-        return _attention_tp(w, x, cfg, i, cache, offset, positions, paged, shard)
+        return _attention_tp(w, x, cfg, i, cache, offset, positions, paged, shard, how)
     if shard.sp:
         x = M.gather_replicated(x, shard.mesh, "model", 1)
-    out = _attention_local(w, x, cfg, i, cache, offset, positions, paged, cfg.n_kv)
+    out = _attention_local(w, x, cfg, i, cache, offset, positions, paged, cfg.n_kv, how)
     return M.split(out, shard.mesh, "model", 1) if shard.sp else out
 
 
-def _attention_local(w, x, cfg, i, cache, offset, positions, paged, kv_heads: int
-                     ) -> torch.Tensor:
+def _attend_how(i, q, k, v, cache, offset, paged, how) -> torch.Tensor:
+    """``attend``, or whisper's uncached non-causal attention (encoder
+    self-attention, cross-attention onto given K / V)."""
+    causal, _, kv = how
+    if kv is not None:
+        return flash_attention(q, kv[0], kv[1], causal=False)
+    if cache is None and not causal:
+        return flash_attention(q, k, v, causal=False)
+    return attend(i, q, k, v, cache, offset, paged)
+
+
+def _attention_local(w, x, cfg, i, cache, offset, positions, paged, kv_heads: int,
+                     how=(True, True, None)) -> torch.Tensor:
     """Attention of every head, on one rank's whole input."""
     b, s, d = x.shape
     h, hd = w["wq"].shape[1], cfg.hd
     q = linear(x, w["wq"].reshape(d, h * hd)).reshape(b, s, h, hd)
-    k = linear(x, w["wk"].reshape(d, kv_heads * hd)).reshape(b, s, kv_heads, hd)
-    v = linear(x, w["wv"].reshape(d, kv_heads * hd)).reshape(b, s, kv_heads, hd)
+    k = v = None
+    if how[2] is None:
+        k = linear(x, w["wk"].reshape(d, kv_heads * hd)).reshape(b, s, kv_heads, hd)
+        v = linear(x, w["wv"].reshape(d, kv_heads * hd)).reshape(b, s, kv_heads, hd)
     if cfg.qk_norm:
-        q, k = qk_head_norm(q, w["q_norm"]), qk_head_norm(k, w["k_norm"])
-    q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
-    out = attend(i, q, k, v, cache, offset, paged).reshape(b, s, h * hd)
+        q = qk_head_norm(q, w["q_norm"])
+        k = qk_head_norm(k, w["k_norm"]) if k is not None else None
+    if how[1]:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta) if k is not None else None
+    out = _attend_how(i, q, k, v, cache, offset, paged, how).reshape(b, s, h * hd)
     return linear(out, w["wo"].reshape(h * hd, d))
 
 
@@ -595,25 +680,70 @@ def virtual_heads(cfg: ModelConfig, tp: int, r: int):
     return (first, n), (lo, hi - lo)
 
 
-def _attention_tp(w, x, cfg, i, cache, offset, positions, paged, shard: Shard):
+def _local_kv(w, xin, cfg, shard: Shard, positions, use_rope: bool):
+    """k and v of this rank's virtual kv heads from the replicated wk / wv
+    (qk-norm and rope applied before the repeat)."""
     (vfirst, vn), (lo, nreal) = virtual_heads(cfg, shard.tp, shard.r)
     rep = kv_store_heads(cfg, shard.tp) // cfg.n_kv
-    xin = shard.enter(x)
     b, s, d = xin.shape
-    hl, hd = w["wq"].shape[1], cfg.hd
+    hd = cfg.hd
     wk = shard.region(w["wk"])[:, lo:lo + nreal]
     wv = shard.region(w["wv"])[:, lo:lo + nreal]
-    q = linear(xin, w["wq"].reshape(d, hl * hd)).reshape(b, s, hl, hd)
     k = linear(xin, wk.reshape(d, nreal * hd)).reshape(b, s, nreal, hd)
     v = linear(xin, wv.reshape(d, nreal * hd)).reshape(b, s, nreal, hd)
-    if cfg.qk_norm:
-        q = qk_head_norm(q, shard.region(w["q_norm"]))
+    if cfg.qk_norm and "k_norm" in w:
         k = qk_head_norm(k, shard.region(w["k_norm"]))
-    q, k = rope(q, positions, cfg.rope_theta), rope(k, positions, cfg.rope_theta)
+    if use_rope:
+        k = rope(k, positions, cfg.rope_theta)
     off = vfirst - lo * rep
     k = torch.repeat_interleave(k, rep, dim=2)[:, :, off:off + vn]
     v = torch.repeat_interleave(v, rep, dim=2)[:, :, off:off + vn]
-    out = attend(i, q, k, v, cache, offset, paged).reshape(b, s, hl * hd)
+    return k, v
+
+
+def cross_kv(p: dict, enc: torch.Tensor, cfg: ModelConfig, shard: Shard = Shard()):
+    """Cross-attention K / V of the encoder states ``enc`` (B, T, d, the
+    whole sequence, as ``enter_states`` hands it over) in the heads this
+    rank attends: its virtual heads under tensor-parallel attention, else
+    every kv head.  No qk-norm and no rope, as the reference's
+    ``_cross_kv``."""
+    specs = attention_specs(cfg, shard.tp)
+    w = {k: shard.full(p[k], specs[k]) for k in ("wk", "wv")}
+    if attn_tp_enabled(cfg, shard.tp):
+        return _local_kv(w, enc, cfg, shard, None, False)
+    b, t, d = enc.shape
+    kv, hd = cfg.n_kv, cfg.hd
+    return tuple(linear(enc, w[n].reshape(d, kv * hd)).reshape(b, t, kv, hd)
+                 for n in ("wk", "wv"))
+
+
+def enter_states(x: torch.Tensor, cfg: ModelConfig, shard: Shard) -> torch.Tensor:
+    """A residual stream under ``shard`` (sequence-sharded or replicated)
+    whole on this rank, as ``cross_kv``'s input: entering the partitioned
+    heads (all-gathered under sp, else copied into the region) with
+    tensor-parallel attention, else gathered replicated (each rank then
+    computes every head)."""
+    if shard.mesh is None:
+        return x
+    if attn_tp_enabled(cfg, shard.tp):
+        return shard.enter(x)
+    return M.gather_replicated(x, shard.mesh, "model", 1) if shard.sp else x
+
+
+def _attention_tp(w, x, cfg, i, cache, offset, positions, paged, shard: Shard,
+                  how=(True, True, None)):
+    xin = shard.enter(x)
+    b, s, d = xin.shape
+    hl, hd = w["wq"].shape[1], cfg.hd
+    q = linear(xin, w["wq"].reshape(d, hl * hd)).reshape(b, s, hl, hd)
+    if cfg.qk_norm:
+        q = qk_head_norm(q, shard.region(w["q_norm"]))
+    if how[1]:
+        q = rope(q, positions, cfg.rope_theta)
+    k = v = None
+    if how[2] is None:
+        k, v = _local_kv(w, xin, cfg, shard, positions, how[1])
+    out = _attend_how(i, q, k, v, cache, offset, paged, how).reshape(b, s, hl * hd)
     return shard.leave(linear(out, w["wo"].reshape(hl * hd, d)))
 
 
@@ -695,16 +825,17 @@ def moe_apply_dense(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     wg, wu, wd = p["w_gate"], p["w_up"], p["w_down"]
     t = x.reshape(-1, d)
     outs = []
-    for i in range(0, t.shape[0], ROW_BLOCK):
-        tb = t[i:i + ROW_BLOCK]
-        pad = ROW_BLOCK - tb.shape[0]
+    block = t.shape[0] if x.device.type == "meta" else ROW_BLOCK  # the dry-run: one block
+    for i in range(0, t.shape[0], block):
+        tb = t[i:i + block]
+        pad = block - tb.shape[0]
         tb = F.pad(tb, (0, 0, 0, pad)) if pad else tb
         gates, ids = topk_gates(tb.float() @ p["router"].float(), cfg.top_k)
-        combine = torch.zeros((ROW_BLOCK, e), dtype=torch.float32, device=x.device)
+        combine = torch.zeros((block, e), dtype=torch.float32, device=x.device)
         combine.scatter_(1, ids, gates)
         h = silu_mul(torch.matmul(tb, wg), torch.matmul(tb, wu), x.dtype)  # (E, T, f)
         y = torch.matmul(h, wd).float().permute(1, 2, 0)  # (T, d, E)
-        outs.append(torch.matmul(y, combine[:, :, None])[:ROW_BLOCK - pad, :, 0])
+        outs.append(torch.matmul(y, combine[:, :, None])[:block - pad, :, 0])
     out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.to(x.dtype).reshape(b, s, d)
 
@@ -721,6 +852,32 @@ def embed_lookup(tok: torch.Tensor, tokens: torch.Tensor, shard: Shard) -> torch
     x = tok[torch.where(inside, local, torch.zeros_like(local))]
     x = torch.where(inside[..., None], x, torch.zeros_like(x))
     return M.all_reduce(x, shard.mesh, "model")
+
+
+def embed_tokens(embed: dict, cfg: ModelConfig, tokens: torch.Tensor, shard: Shard
+                 ) -> torch.Tensor:
+    """Token embeddings in the model dtype; on a mesh from the rank's
+    vocabulary block (its FSDP axis gathered)."""
+    tok = shard.full(embed["tok"], embed_specs(cfg)["tok"])
+    return embed_lookup(tok, tokens, shard).to(cfg.tdtype)
+
+
+def lm_head(embed: dict, cfg: ModelConfig, x: torch.Tensor, shard: Shard,
+            last_logit_only: bool = False) -> torch.Tensor:
+    """Logits over the whole (padded) vocabulary, -1e9 past ``vocab``: on
+    a mesh each rank's vocabulary block of the whole sequence, then
+    gathered over ``model``.  ``last_logit_only`` keeps the last position
+    (the reference's prefill cells)."""
+    head = shard.full(embed["head"], embed_specs(cfg)["head"]).to(cfg.tdtype)
+    x = shard.enter(x) if shard.tp > 1 else x
+    if last_logit_only:
+        x = x[:, -1:]
+    logits = linear(x, head)
+    logits = M.gather_replicated(logits, shard.mesh, "model", logits.dim() - 1)
+    if cfg.vocab_padded != cfg.vocab:
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        logits = logits.masked_fill(pad, -1e9)
+    return logits
 
 
 def topk_dispatch(t: torch.Tensor, router: torch.Tensor, cfg: ModelConfig, cap: int):
@@ -765,9 +922,11 @@ def moe_dispatch_a2a(t, router, cfg: ModelConfig, shard: Shard, experts):
     e_loc = max(e // tp, 1)
     cap = moe_capacity(cfg, t.shape[0])
     flat_ids, slot, keep, flat_gates, flat_tok = topk_dispatch(t, router, cfg, cap)
-    kid, kslot = flat_ids[keep], slot[keep]
-    buf = torch.zeros((e * cap, d), dtype=t.dtype, device=t.device)
-    buf = buf.index_put((kid * cap + kslot,), t[flat_tok[keep]]).reshape(e, cap, d)
+    # a choice past capacity writes the spare last row, dropped: no
+    # boolean indexing, so the trace needs no values (meta tensors)
+    dest = torch.where(keep, flat_ids * cap + slot, torch.full_like(slot, e * cap))
+    buf = torch.zeros((e * cap + 1, d), dtype=t.dtype, device=t.device)
+    buf = buf.index_put((dest,), t[flat_tok])[:e * cap].reshape(e, cap, d)
     if split > 1:
         buf = torch.repeat_interleave(buf, split, dim=0)
     recv = M.all_to_all(buf.reshape(tp, e_loc, cap, d), shard.mesh, "model")

@@ -26,19 +26,27 @@ under ``torch.utils.checkpoint`` (``use_reentrant=False``): its
 activations are recomputed in the backward pass, which changes no bit of
 the loss or the gradients.  ``remat_policy="dots"`` is full remat here.
 
-On a mesh (``mesh=``, a ``launch/mesh.DeviceMesh``) the attention
-families run sharded: ``param_specs`` is the reference's spec tree in the
-port's per-layer layout, ``shard_params`` takes a rank's slice of a full
-tree, ``init_cache(..., mesh=)`` holds the rank's rows and virtual kv
-heads.  ``apply_lm`` takes the rank's rows of the batch (``local_rows``)
-and returns their logits over the whole vocabulary: the embedding and the
-head are vocab-sharded (a masked lookup then an all-reduce; the head's
-logits gathered over ``model``), and with ``cfg.seq_shard`` and S > 1
-dividing by tp the residual stream is sharded over the sequence between
-the blocks (Megatron), gathered before the column-parallel linears and
-reduce-scattered after the row-parallel ones (``sp_once_per_block``: once
-per block, around the whole block).  ``loss_fn(..., mesh=)`` is the mean
-over the global batch."""
+With ``cfg.kv_quant`` the attention caches are int8 with float32
+per-(token, head) scales, the reference's ``_attn_cache``
+(``layers.attend`` writes and reads them).
+
+On a mesh (``mesh=``, a ``launch/mesh.DeviceMesh``) every family runs
+sharded: ``param_specs`` is the reference's spec tree in the port's
+per-layer layout, ``shard_params`` takes a rank's slice of a full tree,
+``init_cache(..., mesh=)`` holds the rank's rows, virtual kv heads, ssm
+heads and conv channels (``cache_specs``).  ``apply_lm`` takes the rank's
+rows of the batch (``local_rows``) and returns their logits over the
+whole vocabulary: the embedding and the head are vocab-sharded (a masked
+lookup then an all-reduce; the head's logits gathered over ``model``),
+and with ``cfg.seq_shard`` and S > 1 dividing by tp the residual stream
+is sharded over the sequence between the blocks (Megatron), gathered
+before the column-parallel linears and reduce-scattered after the
+row-parallel ones (``sp_once_per_block``: once per block, around the
+whole block).  The mamba2 blocks regroup their contiguous shards per
+layer (``ssm.mamba_apply_sharded``); zamba2's one shared attention block
+is sharded as any attention block, with its KV entry per application;
+whisper is ``whisper.apply_whisper(..., mesh=)``.  ``loss_fn(...,
+mesh=)`` is the mean over the global batch."""
 from __future__ import annotations
 
 import math
@@ -54,9 +62,10 @@ from repro_torch.models.common import Family, ModelConfig
 
 Params = Dict[str, Any]
 
-__all__ = ["init_lm", "init_layer", "init_embed", "init_cache", "apply_lm", "loss_fn",
-           "hybrid_groups", "param_count", "param_specs", "layer_specs", "shard_params",
-           "shard_leaf", "unshard_leaf", "map_specs", "batch_axes_for", "local_rows", "split_experts"]
+__all__ = ["init_lm", "init_layer", "init_embed", "init_cache", "cache_specs", "apply_lm",
+           "loss_fn", "hybrid_groups", "param_count", "param_specs", "layer_specs",
+           "shard_params", "shard_leaf", "unshard_leaf", "map_specs", "batch_axes_for",
+           "local_rows", "split_experts", "mean_over_batch"]
 
 # the families whose blocks are attention + an FFN (dense or MoE)
 _ATTENTION_FAMILIES = (Family.DENSE, Family.VLM, Family.MOE)
@@ -173,9 +182,11 @@ def local_rows(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 def layer_specs(cfg: ModelConfig, tp: int, block: Optional[str] = None) -> Params:
-    """One attention block's spec tree (the reference's ``_layer_init``
-    specs without the stacked layer axis)."""
+    """One block's spec tree (the reference's ``_layer_init`` specs
+    without the stacked layer axis): "dense", "moe" or "ssm"."""
     block = block or _BLOCK_OF.get(cfg.family)
+    if block == "ssm":
+        return {"ln": L.rmsnorm_spec(), "mamba": S.mamba_specs(cfg)}
     out = {"ln1": L.rmsnorm_spec(), "attn": L.attention_specs(cfg, tp),
            "ln2": L.rmsnorm_spec()}
     if block == "moe":
@@ -183,20 +194,28 @@ def layer_specs(cfg: ModelConfig, tp: int, block: Optional[str] = None) -> Param
     elif block == "dense":
         out["mlp"] = L.mlp_specs(cfg)
     else:
-        raise NotImplementedError(f"specs of a {block} block: the attention families only")
+        raise ValueError(f"layer_specs: unknown block {block!r}")
     return out
 
 
 def param_specs(cfg: ModelConfig, tp: int = 1) -> Params:
     """The spec tree of ``init_lm``'s params at model-axis size ``tp``: per
     leaf one axis name (or None) per dimension, the reference's
-    ``init_lm(key, cfg, tp)[1]`` with its ``PartitionSpec`` leaves as
-    tuples, in the port's per-layer layout (the attention families)."""
-    if cfg.family not in _ATTENTION_FAMILIES:
-        raise NotImplementedError(f"a mesh for the {cfg.family.value} family: "
-                                  "ROADMAP Queue 1")
-    return {"embed": L.embed_specs(cfg), "final_norm": L.rmsnorm_spec(),
-            "layers": [layer_specs(cfg, tp) for _ in range(cfg.n_layers)]}
+    ``init_lm(key, cfg, tp)[1]`` (``init_whisper`` for the audio family)
+    with its ``PartitionSpec`` leaves as tuples, in the port's per-layer
+    layout."""
+    if cfg.family is Family.AUDIO:
+        return W.whisper_specs(cfg, tp)
+    out = {"embed": L.embed_specs(cfg), "final_norm": L.rmsnorm_spec()}
+    if cfg.family is Family.HYBRID:
+        ng, rem = hybrid_groups(cfg)
+        out["layers"] = [[layer_specs(cfg, tp, "ssm") for _ in range(cfg.attn_every)]
+                         for _ in range(ng)]
+        out["tail"] = [layer_specs(cfg, tp, "ssm") for _ in range(rem)]
+        out["shared_attn"] = layer_specs(cfg, tp, "dense")
+    else:
+        out["layers"] = [layer_specs(cfg, tp) for _ in range(cfg.n_layers)]
+    return out
 
 
 def split_experts(w: torch.Tensor, name: str, n_experts: int, split: int) -> torch.Tensor:
@@ -257,40 +276,51 @@ def shard_params(params: Params, specs: Params, mesh, cfg: Optional[ModelConfig]
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device,
-               dtype: Optional[torch.dtype] = None, mesh=None) -> Params:
+               dtype: Optional[torch.dtype] = None, mesh=None, tp: int = 1) -> Params:
     """The dense cache of prefill and decode, written in place by
     ``apply_lm``: ``{"length": 0, "attn": {"k", "v"}}`` with (n_layers,
-    batch, s_max, kv heads, hd) buffers for the attention families;
-    ``"ssm": {"state", "conv"}`` with a leading (n_layers,) axis for the
-    SSM family; for the hybrid, ``"ssm"`` with leading (ng, attn_every),
-    ``"ssm_tail"`` with (rem,) and ``"attn"`` with one entry per shared
-    block application (ng); whisper's cache for the audio family.  On a
-    mesh, ``batch`` is the global batch: the cache holds this rank's rows
-    (``local_rows``) and its ``kv_store_heads / tp`` virtual heads (every
-    head where attention is replicated over ``model``), the reference's
-    ``cache_specs``."""
+    batch, s_max, kv heads, hd) buffers for the attention families, and
+    with ``cfg.kv_quant`` int8 ``k`` / ``v`` beside float32 ``k_scale`` /
+    ``v_scale`` (n_layers, batch, s_max, kv heads, 1), the reference's
+    ``_attn_cache``; ``"ssm": {"state", "conv"}`` with a leading
+    (n_layers,) axis for the SSM family; for the hybrid, ``"ssm"`` with
+    leading (ng, attn_every), ``"ssm_tail"`` with (rem,) and ``"attn"``
+    with one entry per shared block application (ng); whisper's cache for
+    the audio family.  On a mesh, ``batch`` is the global batch: the cache
+    holds this rank's rows (``local_rows``), its ``kv_store_heads / tp``
+    virtual heads (every head where attention is replicated over
+    ``model``), its ssm heads and its conv channel block, the reference's
+    ``cache_specs``.  Without a mesh, ``tp`` gives the whole cache of a
+    model axis that size (``kv_store_heads(cfg, tp)`` heads, the
+    reference's ``init_cache(..., tp)``)."""
     dt = dtype or cfg.tdtype
     fam = cfg.family
-    heads = cfg.n_kv
+    heads = L.kv_store_heads(cfg, tp)
+    tp = 1
     if mesh is not None and mesh.size > 1:
-        if fam not in _ATTENTION_FAMILIES:
-            raise NotImplementedError(f"a mesh for the {fam.value} family: ROADMAP Queue 1")
         axes = L.pick_batch_axes(mesh, batch)
         batch //= mesh.axis_size(axes) if axes is not None else 1
-        heads = L.kv_store_heads(cfg, mesh.tp)
-        if L.attn_tp_enabled(cfg, mesh.tp):
-            heads //= mesh.tp
+        tp = mesh.tp
+        heads = L.kv_store_heads(cfg, tp)
+        if L.attn_tp_enabled(cfg, tp):
+            heads //= tp
     if fam is Family.AUDIO:
-        return W.init_whisper_cache(cfg, batch, s_max, device, dt)
+        return W.init_whisper_cache(cfg, batch, s_max, device, dt, heads=heads)
     cache: Params = {"length": 0}
 
     def stacked(lead):
         base = S.init_ssm_cache(cfg, batch, dt, device)
-        return {k: torch.zeros(lead + tuple(v.shape), dtype=v.dtype, device=device)
-                for k, v in base.items()}
+        return {k: torch.zeros(lead + _ssm_shard_shape(k, v.shape, tp), dtype=v.dtype,
+                               device=device) for k, v in base.items()}
 
     def attn(n):
         shape = (n, batch, s_max, heads, cfg.hd)
+        if cfg.kv_quant:
+            sshape = shape[:-1] + (1,)
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                    "k_scale": torch.zeros(sshape, dtype=torch.float32, device=device),
+                    "v_scale": torch.zeros(sshape, dtype=torch.float32, device=device)}
         return {"k": torch.zeros(shape, dtype=dt, device=device),
                 "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -305,6 +335,41 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device,
             cache["ssm_tail"] = stacked((rem,))
         cache["attn"] = attn(ng)
     return cache
+
+
+def cache_specs(cfg: ModelConfig, tp: int, batch_axes) -> Params:
+    """The reference's ``cache_specs`` (``whisper_cache_specs`` for the
+    audio family) as tuples: rows over the batch axes, kv heads over
+    ``model`` where attention is tensor-parallel, the ssm state's heads and
+    the conv history's channels over ``model``."""
+    if cfg.family is Family.AUDIO:
+        return W.whisper_cache_specs(cfg, tp, batch_axes)
+    h = "model" if L.attn_tp_enabled(cfg, tp) else None
+    kv = (None, batch_axes, None, h, None)
+    attn = {"k": kv, "v": kv}
+    if cfg.kv_quant:
+        attn.update(k_scale=kv, v_scale=kv)
+    ssm = {"state": (None, batch_axes, "model", None, None),
+           "conv": (None, batch_axes, None, "model")}
+    out: Params = {"length": ()}
+    if cfg.family in _ATTENTION_FAMILIES:
+        out["attn"] = attn
+    elif cfg.family is Family.SSM:
+        out["ssm"] = ssm
+    else:
+        out["ssm"] = {k: (None,) + v for k, v in ssm.items()}
+        if hybrid_groups(cfg)[1]:
+            out["ssm_tail"] = ssm
+        out["attn"] = attn
+    return out
+
+
+def _ssm_shard_shape(name: str, shape, tp: int):
+    """One block's ssm cache entry on a rank: the state's heads (B, H, P,
+    N) and the conv history's channels (B, W-1, C) cut over ``model``."""
+    shape = list(shape)
+    shape[1 if name == "state" else 2] //= tp
+    return tuple(shape)
 
 
 def _attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, i: int, cache, offset,
@@ -325,12 +390,21 @@ def _attention_block(p: Params, x: torch.Tensor, cfg: ModelConfig, i: int, cache
 
 
 def _ssm_block(p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[Params],
-               decode: bool) -> torch.Tensor:
+               decode: bool, shard: L.Shard = L.Shard()) -> torch.Tensor:
     """Pre-norm mamba2 block.  ``state`` holds views of this block's entry
     in the cache (``state``, ``conv``), overwritten in place with the new
-    state; None trains or scores without a cache."""
-    z = L.rmsnorm(p["ln"], x)
-    if decode:
+    state; None trains or scores without a cache.  On a mesh (tp > 1 or
+    FSDP) the block runs on the rank's shard (``ssm.mamba_*_sharded``)."""
+    z = L.rmsnorm(shard.gain(p["ln"]), x)
+    if shard.mesh is not None and (shard.tp > 1 or cfg.fsdp):
+        if decode:
+            y, new = S.mamba_decode_sharded(p["mamba"], z, cfg, shard, state)
+        else:
+            y, fstate, tail = S.mamba_apply_sharded(
+                p["mamba"], z, cfg, shard, state["state"] if state is not None else None,
+                state["conv"] if state is not None else None)
+            new = {"state": fstate, "conv": tail}
+    elif decode:
         y, new = S.mamba_decode(p["mamba"], z, cfg, state)
     else:
         y, fstate, tail = S.mamba_apply(p["mamba"], z, cfg,
@@ -347,33 +421,12 @@ def _ssm_state(tree: Optional[Params], *index) -> Optional[Params]:
     return None if tree is None else {k: v[index] for k, v in tree.items()}
 
 
-def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor, shard: L.Shard
-           ) -> torch.Tensor:
-    """Token embeddings; on a mesh from the rank's vocabulary block."""
-    tok = shard.full(params["embed"]["tok"], L.embed_specs(cfg)["tok"])
-    return L.embed_lookup(tok, tokens, shard).to(cfg.tdtype)
-
-
-def _head(params: Params, cfg: ModelConfig, x: torch.Tensor, shard: L.Shard) -> torch.Tensor:
-    """Logits over the whole (padded) vocabulary: on a mesh each rank's
-    vocabulary block of the whole sequence, then gathered over ``model``."""
-    head = shard.full(params["embed"]["head"], L.embed_specs(cfg)["head"]).to(cfg.tdtype)
-    logits = L.linear(shard.enter(x) if shard.tp > 1 else x, head)
-    logits = M.gather_replicated(logits, shard.mesh, "model", logits.dim() - 1)
-    if cfg.vocab_padded != cfg.vocab:
-        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
-        logits = logits.masked_fill(pad, -1e9)
-    return logits
-
-
 def _shard_of(cfg: ModelConfig, mesh, s: int) -> L.Shard:
     """The blocks' context: none without a mesh; on a mesh (one rank too,
     where the MoE block takes the reference's all-to-all path as it does
     for any mesh) sequence sharding where the reference constrains it."""
     if mesh is None:
         return L.Shard()
-    if cfg.family not in _ATTENTION_FAMILIES:
-        raise NotImplementedError(f"a mesh for the {cfg.family.value} family: ROADMAP Queue 1")
     tp = mesh.tp
     return L.Shard(mesh, sp=bool(cfg.seq_shard and tp > 1 and s > 1 and s % tp == 0))
 
@@ -382,26 +435,28 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
              cache: Optional[Params] = None,
              vision_embeds: Optional[torch.Tensor] = None,
              frames: Optional[torch.Tensor] = None,
-             mesh=None) -> Tuple[torch.Tensor, Optional[Params]]:
+             mesh=None, last_logit_only: bool = False) -> Tuple[torch.Tensor, Optional[Params]]:
     """The forward of every family: embed (after ``vision_embeds`` (B,
     T_img, d), which a VLM's image tokens prepend), the blocks, final norm,
-    head; logits past ``vocab`` (a padded vocabulary) are -1e9.  The SSM
-    and hybrid families run the chunked scan when S > 1 (prefill, extend,
-    training) and the recurrent step when S == 1 with a cache; the audio
-    family is ``whisper.apply_whisper`` (``frames`` (B, n_frames, d) feed
-    its encoder).  Cache tensors are written in place; the returned cache
-    dict carries the advanced length.  With ``mesh`` (the attention
-    families) ``params`` is the rank's shard, ``tokens`` its rows, and the
-    logits its rows' over the whole vocabulary."""
+    head; logits past ``vocab`` (a padded vocabulary) are -1e9, and with
+    ``last_logit_only`` only the last position's (the prefill cells).  The
+    SSM and hybrid families run the chunked scan when S > 1 (prefill,
+    extend, training) and the recurrent step when S == 1 with a cache; the
+    audio family is ``whisper.apply_whisper`` (``frames`` (B, n_frames, d)
+    feed its encoder).  Cache tensors are written in place; the returned
+    cache dict carries the advanced length.  With ``mesh`` ``params`` is
+    the rank's shard, ``tokens`` (and ``frames`` / ``vision_embeds``) its
+    rows, and the logits its rows' over the whole vocabulary."""
     fam = cfg.family
     if cache is not None and "page_table" in cache and fam not in _ATTENTION_FAMILIES:
         raise NotImplementedError(f"paged KV cache: family {fam.value}")
-    if fam is Family.AUDIO and mesh is None:
-        return W.apply_whisper(params, cfg, tokens, frames=frames, cache=cache)
+    if fam is Family.AUDIO:
+        return W.apply_whisper(params, cfg, tokens, frames=frames, cache=cache, mesh=mesh,
+                               last_logit_only=last_logit_only)
     b = tokens.shape[0]
     s = tokens.shape[1] + (vision_embeds.shape[1] if vision_embeds is not None else 0)
     shard = _shard_of(cfg, mesh, s)
-    x = _embed(params, cfg, tokens, shard)
+    x = L.embed_tokens(params["embed"], cfg, tokens, shard)
     if vision_embeds is not None:
         x = torch.cat([vision_embeds.to(cfg.tdtype), x], dim=1)
     if shard.sp:
@@ -417,7 +472,8 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
                                                     paged, shard), cfg, cache is not None)
 
     def ssm_block(p, state):
-        return L.remat(lambda xc: _ssm_block(p, xc, cfg, state, decode), cfg, cache is not None)
+        return L.remat(lambda xc: _ssm_block(p, xc, cfg, state, decode, shard), cfg,
+                       cache is not None)
 
     ssm = cache.get("ssm") if cache is not None else None
     if fam is Family.SSM:
@@ -435,7 +491,17 @@ def apply_lm(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
         for i, p in enumerate(params["layers"]):
             x = attn_block(p, i)(x)
     x = L.rmsnorm(shard.gain(params["final_norm"]), x)
-    return _head(params, cfg, x, shard), L.advance_cache(cache, offset, s)
+    logits = L.lm_head(params["embed"], cfg, x, shard, last_logit_only)
+    return logits, L.advance_cache(cache, offset, s)
+
+
+def mean_over_batch(loss: torch.Tensor, mesh) -> torch.Tensor:
+    """A rank's mean loss over its rows -> the mean over the global batch
+    (the batch axes divide it); one device: as it is."""
+    if mesh is not None and mesh.dp > 1:
+        axes = batch_axes_for(mesh)
+        loss = M.all_reduce(loss, mesh, axes) / mesh.axis_size(axes)
+    return loss
 
 
 def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
@@ -449,12 +515,8 @@ def loss_fn(params: Params, cfg: ModelConfig, tokens: torch.Tensor,
     on each rank is the rank's share, summed over ``data`` after the
     backward)."""
     if cfg.family is Family.AUDIO:
-        return W.whisper_loss_fn(params, cfg, tokens, frames)
+        return mean_over_batch(W.whisper_loss_fn(params, cfg, tokens, frames, mesh=mesh), mesh)
     logits, _ = apply_lm(params, cfg, tokens[:, :-1], vision_embeds=vision_embeds, mesh=mesh)
     if vision_embeds is not None:
         logits = logits[:, vision_embeds.shape[1]:, :]
-    loss = L.xent(logits, tokens[:, 1:])
-    if mesh is not None and mesh.dp > 1:
-        axes = batch_axes_for(mesh)
-        loss = M.all_reduce(loss, mesh, axes) / mesh.axis_size(axes)
-    return loss
+    return mean_over_batch(L.xent(logits, tokens[:, 1:]), mesh)

@@ -14,7 +14,24 @@ reference's ``lax.scan``.  The depthwise causal conv is the reference's
 shift-and-sum over the ``ssm_conv`` taps, never ``F.conv1d`` (cuDNN
 convolutions may run in TF32 on the card).  The in and out projections
 are ``layers.linear``: outside training a row's bits do not depend on the
-row count, so a cached decode step projects as the chunked pass does."""
+row count, so a cached decode step projects as the chunked pass does.
+
+On a mesh (``mamba_apply_sharded`` / ``mamba_decode_sharded``, a
+``layers.Shard``) each rank holds the reference's blocks
+(``mamba_specs``): contiguous cuts over ``model`` of w_in's output columns
+[z | x | B | C | dt], of the conv's d_inner + 2 g n channels, of the
+heads' A_log / D / dt_bias, of the norm's gain and of w_out's rows; under
+FSDP w_in and w_out also over ``data``.  A contiguous cut of w_in's
+columns or of the conv channels does not fall on head boundaries, so per
+layer the rank all-gathers over ``model``, in one packed collective, its
+in-projection columns, its conv weights' channels and its cached conv
+history's channels, then takes its heads' z, x and dt and the B / C
+groups every head reads; the SSD runs on its heads; the gated RMSNorm
+over the whole d_inner all-reduces its sum of squares; w_out is
+row-parallel (``Shard.leave``: an all-reduce, or a reduce-scatter onto
+the sequence shards).  Three collectives a layer.  The ssm state
+holds the rank's heads and the conv cache its contiguous channel block,
+the reference's cache specs."""
 from __future__ import annotations
 
 import math
@@ -23,12 +40,14 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.launch import mesh as M
 from repro_torch.models.common import ModelConfig
-from repro_torch.models.layers import linear, rmsnorm
+from repro_torch.models.layers import Shard, linear, rmsnorm, row_mean_sq
 
 Params = Dict[str, Any]
 
-__all__ = ["mamba_init", "mamba_apply", "mamba_decode", "init_ssm_cache", "ssd_chunked"]
+__all__ = ["mamba_init", "mamba_specs", "mamba_apply", "mamba_decode", "mamba_apply_sharded",
+           "mamba_decode_sharded", "init_ssm_cache", "ssd_chunked"]
 
 
 def mamba_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
@@ -53,6 +72,15 @@ def mamba_init(gen: torch.Generator, cfg: ModelConfig, device) -> Params:
         "w_out": normal((din, d), 1.0 / math.sqrt(din)),
         "norm": {"g": torch.ones((din,), dtype=dt, device=device)},
     }
+
+
+def mamba_specs(cfg: ModelConfig) -> Params:
+    """The reference's ``mamba_init`` specs: everything over ``model``,
+    w_in / w_out also over ``data`` under FSDP."""
+    fs = "data" if cfg.fsdp else None
+    return {"w_in": (fs, "model"), "conv_w": (None, "model"), "conv_b": ("model",),
+            "A_log": ("model",), "D": ("model",), "dt_bias": ("model",),
+            "w_out": ("model", fs), "norm": {"g": ("model",)}}
 
 
 def _split_in(proj: torch.Tensor, cfg: ModelConfig):
@@ -211,3 +239,170 @@ def mamba_decode(params: Params, xin: torch.Tensor, cfg: ModelConfig,
     y = y.reshape(bsz, 1, din)
     y = rmsnorm(params["norm"], y * F.silu(z.float()).to(y.dtype))
     return linear(y, params["w_out"]), {"state": state, "conv": window[:, 1:, :]}
+
+
+# ---------------------------------------------------------------------------
+# On a mesh
+# ---------------------------------------------------------------------------
+
+
+def _rank_cut(cfg: ModelConfig, shard: Shard):
+    """(heads per rank, d_inner per rank, this rank's first head); the
+    model axis must divide the heads."""
+    h, tp = cfg.ssm_heads, shard.tp
+    if h % tp or (cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state) % tp:
+        raise ValueError(f"{cfg.name}: {h} ssm heads (and their conv channels) do not split "
+                         f"over {tp} model ranks")
+    hl = h // tp
+    return hl, hl * cfg.ssm_headdim, shard.r * hl
+
+
+def _rank_channels(full: torch.Tensor, cfg: ModelConfig, shard: Shard) -> torch.Tensor:
+    """This rank's conv channels of a tensor over all d_inner + 2 g n:
+    its heads' x channels, then every B / C channel."""
+    _, dl, h0 = _rank_cut(cfg, shard)
+    x0 = h0 * cfg.ssm_headdim
+    return torch.cat([full[..., x0:x0 + dl], full[..., cfg.d_inner:]], dim=-1)
+
+
+def _gather_packed(parts, shard: Shard):
+    """One all-gather over ``model`` of several tensors of one dtype, each
+    cut over ``model`` along its last dimension: packed flat, gathered, and
+    each returned whole (the ranks' blocks joined along its last
+    dimension); None stays None."""
+    live = [t for t in parts if t is not None]
+    flat = torch.cat([t.reshape(1, -1) for t in live], dim=1)
+    full = M.all_gather(flat, shard.mesh, "model", 0)  # (tp, n)
+    out, at = [], 0
+    for t in parts:
+        if t is None:
+            out.append(None)
+            continue
+        n = t.numel()
+        blocks = full[:, at:at + n].reshape((shard.tp,) + tuple(t.shape))
+        out.append(torch.cat(blocks.unbind(0), dim=-1))
+        at += n
+    return out
+
+
+def _rank_inputs(params: Params, z_in: torch.Tensor, cfg: ModelConfig, shard: Shard,
+                 conv_state: Optional[torch.Tensor]):
+    """The rank's shard of the block's inputs, from one all-gather over
+    ``model`` of its in-projection columns, its conv weights' channels and
+    its cached conv history's channels: (z of its heads, xbc over all
+    channels, dt_raw of its heads, the conv weights and bias of its
+    channels, the conv history over all channels or None)."""
+    specs = mamba_specs(cfg)
+    hl, dl, h0 = _rank_cut(cfg, shard)
+    din, gn = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
+    w_in = shard.full(params["w_in"], specs["w_in"])
+    proj = linear(shard.enter(z_in), w_in)
+    conv = conv_state.to(proj.dtype) if conv_state is not None else None
+    proj, conv_w, conv_b, conv = _gather_packed(
+        [proj, params["conv_w"].to(proj.dtype), params["conv_b"].to(proj.dtype), conv], shard)
+    z = proj[..., h0 * cfg.ssm_headdim:h0 * cfg.ssm_headdim + dl]
+    xbc = proj[..., din:2 * din + 2 * gn]
+    dt_raw = proj[..., 2 * din + 2 * gn + h0:2 * din + 2 * gn + h0 + hl]
+    return (z, xbc, dt_raw, _rank_channels(conv_w, cfg, shard),
+            _rank_channels(conv_b, cfg, shard), conv)
+
+
+def _rank_bc(xbc: torch.Tensor, cfg: ModelConfig, shard: Shard):
+    """(x of the rank's heads (..., hl, P), B and C of its heads (..., hl,
+    N)) from its conv output (..., dl + 2 g n)."""
+    hl, dl, h0 = _rank_cut(cfg, shard)
+    g, n, h, p = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_headdim
+    lead = xbc.shape[:-1]
+    xpart = xbc[..., :dl].reshape(*lead, hl, p)
+    bc = [torch.repeat_interleave(xbc[..., dl + i * g * n:dl + (i + 1) * g * n].reshape(
+        *lead, g, n), h // g, dim=-2)[..., h0:h0 + hl, :] for i in (0, 1)]
+    return xpart, bc[0], bc[1]
+
+
+def _rank_out(params: Params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig,
+              shard: Shard, eps: float = 1e-6) -> torch.Tensor:
+    """The gated RMSNorm over the whole d_inner (the rank's sum of squares
+    all-reduced over ``model``; the sum's gradient reaches every rank),
+    then the row-parallel w_out and the reduction over ``model``."""
+    _, dl, _ = _rank_cut(cfg, shard)
+    yg = y * F.silu(z.float()).to(y.dtype)
+    xf = yg.float()
+    ss = M.copy_to_region(M.all_reduce(row_mean_sq(xf) * dl, shard.mesh, "model"),
+                          shard.mesh, "model")
+    yn = (xf * torch.rsqrt(ss / cfg.d_inner + eps) * params["norm"]["g"].float()).to(y.dtype)
+    w_out = shard.full(params["w_out"], mamba_specs(cfg)["w_out"])
+    return shard.leave(linear(yn, w_out))
+
+
+def _full_conv(conv: Optional[torch.Tensor], bsz: int, like: torch.Tensor,
+               cfg: ModelConfig) -> torch.Tensor:
+    """The conv history over all channels (B, W-1, C): the gathered cache,
+    or zeros for a fresh sequence."""
+    if conv is not None:
+        return conv
+    c = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    return torch.zeros((bsz, cfg.ssm_conv - 1, c), dtype=like.dtype, device=like.device)
+
+
+def _conv_block(tail: torch.Tensor, cfg: ModelConfig, shard: Shard) -> torch.Tensor:
+    """This rank's contiguous block of a conv history over all channels."""
+    c = tail.shape[-1] // shard.tp
+    return tail[..., shard.r * c:(shard.r + 1) * c]
+
+
+def mamba_apply_sharded(params: Params, xin: torch.Tensor, cfg: ModelConfig, shard: Shard,
+                        init_state: Optional[torch.Tensor] = None,
+                        conv_state: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``mamba_apply`` on this rank's shard (``params``: the rank's blocks
+    under ``mamba_specs``; ``xin``: its stream, sequence-sharded under
+    ``shard.sp``; ``init_state`` (B, hl, P, N) its heads' state;
+    ``conv_state`` (B, W-1, C / tp) its conv block) -> (its part of the
+    output, reduced over ``model``; its heads' final state; its block of
+    the new conv history)."""
+    hl, dl, h0 = _rank_cut(cfg, shard)
+    p, width = cfg.ssm_headdim, cfg.ssm_conv
+    z, xbc_all, dt_raw, conv_w, conv_b, conv = _rank_inputs(params, xin, cfg, shard, conv_state)
+    bsz, s = xbc_all.shape[:2]
+    combined = torch.cat([_full_conv(conv, bsz, xbc_all, cfg), xbc_all], dim=1)
+    conv_tail = _conv_block(combined[:, -(width - 1):, :], cfg, shard)
+    xbc = _causal_conv_with_history(_rank_channels(combined, cfg, shard), s, conv_w, conv_b)
+    xpart, b_h, c_h = _rank_bc(xbc, cfg, shard)
+    dt = F.softplus(dt_raw.float() + params["dt_bias"])
+    da = dt * -torch.exp(params["A_log"])
+    x_scaled = xpart * dt[..., None].to(xpart.dtype)
+    q = min(cfg.ssm_chunk, s)
+    pad = (-s) % q
+    if pad:
+        x_scaled = F.pad(x_scaled, (0, 0, 0, 0, 0, pad))
+        b_h = F.pad(b_h, (0, 0, 0, 0, 0, pad))
+        c_h = F.pad(c_h, (0, 0, 0, 0, 0, pad))
+        da = F.pad(da, (0, 0, 0, pad))
+    y, final_state = ssd_chunked(x_scaled, da, b_h, c_h, q, init_state)
+    if pad:
+        y = y[:, :s]
+    y = (y + params["D"].to(y.dtype)[None, None, :, None] * xpart).reshape(bsz, s, dl)
+    return _rank_out(params, y, z, cfg, shard), final_state, conv_tail
+
+
+def mamba_decode_sharded(params: Params, xin: torch.Tensor, cfg: ModelConfig, shard: Shard,
+                         cache: Dict[str, torch.Tensor]
+                         ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``mamba_decode`` on this rank's shard; ``cache`` holds its heads'
+    state and its conv block."""
+    hl, dl, _ = _rank_cut(cfg, shard)
+    z, xbc_new, dt_raw, conv_w, conv_b, conv = _rank_inputs(params, xin, cfg, shard,
+                                                             cache["conv"])
+    bsz = xbc_new.shape[0]
+    window = torch.cat([_full_conv(conv, bsz, xbc_new, cfg), xbc_new], dim=1)
+    xbc = _causal_conv_with_history(_rank_channels(window, cfg, shard), 1, conv_w, conv_b)[:, 0]
+    xpart, b_h, c_h = _rank_bc(xbc, cfg, shard)
+    dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])
+    decay = torch.exp(dt * -torch.exp(params["A_log"]))
+    dbx = torch.einsum("bhp,bhn->bhpn", (xpart * dt[..., None].to(xpart.dtype)).float(),
+                       b_h.float())
+    state = cache["state"] * decay[:, :, None, None] + dbx
+    y = torch.einsum("bhpn,bhn->bhp", state, c_h.float()).to(xin.dtype)
+    y = (y + params["D"].to(y.dtype)[None, :, None] * xpart).reshape(bsz, 1, dl)
+    return (_rank_out(params, y, z, cfg, shard),
+            {"state": state, "conv": _conv_block(window[:, 1:, :], cfg, shard)})

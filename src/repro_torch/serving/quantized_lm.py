@@ -40,7 +40,22 @@ sharded W4A8 forward is one device's bit for bit.  The W4A8 MoE takes the
 expert-parallel all-to-all (``layers.moe_dispatch_a2a``) with the W4A8
 kernel once per local expert on its (tp * cap, d) slots, as the
 reference's ``_moe_a2a_quant`` (int8 tokens, int4 experts, int32
-accumulation).  FSDP (``cfg.fsdp``) over prepacked weights is not ported.
+accumulation).
+
+FSDP (``cfg.fsdp``) over prepacked weights: where the reference's spec
+cuts a packed weight over ``data`` as well (K of a column-parallel
+weight, N of a row-parallel one, K of the experts), the rank prepacks its
+``model`` block whole and keeps a contiguous ``data`` block of the
+prepacked tiles (the K64 axis for K, the N16 axis for N); the forward
+all-gathers those tiles over ``data`` before K1, which restores the
+prepacked block exactly, so the output is one device's bit for bit.  The
+tiles must split evenly over ``data`` (raised otherwise).  The
+embedding's d_model axis is cut and gathered the same way.
+
+``abstract_quantized`` / ``abstract_quantized_moe`` give the W4A8 trees'
+shapes and dtypes as meta tensors (the reference's packing and layout,
+for the dry-run) with their specs; ``shard_quantized`` turns a full tree
+of that packing (real or meta tensors) into a rank's serving shard.
 """
 from __future__ import annotations
 
@@ -73,6 +88,9 @@ __all__ = [
     "params_from_numpy",
     "quantized_param_specs",
     "quantized_moe_param_specs",
+    "abstract_quantized",
+    "abstract_quantized_moe",
+    "shard_quantized",
 ]
 
 
@@ -110,14 +128,51 @@ def _quant_pack(w: torch.Tensor, spec=None, mesh=None) -> Params:
 
 def _finish(qw: Params, spec, mesh) -> Params:
     """A weight packed as the reference packs it ((K/2, N) + (1, N)
-    scales): its rank block under ``spec`` on a mesh, then prepacked."""
+    scales): its ``model`` block under ``spec`` on a mesh, then prepacked,
+    then, where ``spec`` names ``data`` (FSDP), this rank's contiguous
+    block of the prepacked tiles along that axis (``_fsdp_dim``)."""
     if _sharded(mesh):
-        if "data" in tuple(spec["packed"]):
-            raise NotImplementedError("FSDP over prepacked W4A8 weights is not ported")
         from repro_torch.models.lm import shard_leaf
-        qw = {"packed": shard_leaf(qw["packed"], spec["packed"], mesh),
+        tp_only = tuple(None if a == "data" else a for a in spec["packed"])
+        qw = {"packed": shard_leaf(qw["packed"], tp_only, mesh),
               "sw": shard_leaf(qw["sw"], spec["sw"], mesh)}
-    return {"packed": prepack(qw["packed"]), "sw": qw["sw"].contiguous()}
+    wpp = prepack(qw["packed"])
+    dim = _fsdp_dim(spec["packed"]) if _sharded(mesh) else None
+    if dim is not None:
+        wpp = _data_block(wpp, dim, mesh)
+    return {"packed": wpp, "sw": qw["sw"].contiguous()}
+
+
+def _fsdp_dim(packed_spec, lead: int = 0):
+    """The prepacked (N16, K64, 512) axis a packed (K/2, N) spec's ``data``
+    cut lands on (K -> 1, N -> 0; ``lead`` axes in front, as an expert
+    stack's), or None."""
+    if packed_spec is None:
+        return None
+    spec = tuple(packed_spec)[lead:]
+    if spec[0] == "data":
+        return lead + 1
+    if len(spec) > 1 and spec[1] == "data":
+        return lead
+    return None
+
+
+def _data_block(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    n = mesh.axis_size("data")
+    if t.shape[dim] % n:
+        raise ValueError(f"FSDP over prepacked W4A8 weights: {t.shape[dim]} tiles along dim "
+                         f"{dim} of {tuple(t.shape)} do not split over data ({n})")
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.axis_index("data") * size, size).contiguous()
+
+
+def _gather_data(qw: Params, spec, shard: L.Shard, lead: int = 0) -> Params:
+    """A packed weight whole again over ``data`` (FSDP; a no-op otherwise):
+    its prepacked tiles all-gathered along their cut axis."""
+    dim = _fsdp_dim(spec["packed"], lead) if shard.mesh is not None else None
+    if dim is None or shard.mesh.axis_size("data") == 1:
+        return qw
+    return {"packed": shard.mesh.all_gather(qw["packed"], "data", dim), "sw": qw["sw"]}
 
 
 def _sharded(mesh) -> bool:
@@ -222,10 +277,11 @@ def quantize_embed(embed: Params, final_norm: Params, cfg: ModelConfig, mesh=Non
     r1 = rot.plan_rotation(cfg.d_model)
     tok = rot.local_rotate(embed["tok"].float(), r1).to(cfg.tdtype)
     head = _fold_norm_into(embed["head"], final_norm["g"]).float()
+    fs = "data" if cfg.fsdp else None
     if _sharded(mesh):
         from repro_torch.models.lm import shard_leaf
-        tok = shard_leaf(tok, ("model", None), mesh)
-    return {"embed": tok, "head": _quant_pack(_rot_in(head, r1), _lin_in(), mesh)}
+        tok = shard_leaf(tok, ("model", fs), mesh)
+    return {"embed": tok, "head": _quant_pack(_rot_in(head, r1), _lin_in(fs), mesh)}
 
 
 def quantize_dense_lm(params: Params, cfg: ModelConfig, mesh=None) -> Params:
@@ -377,8 +433,6 @@ def _shard_of(cfg: ModelConfig, mesh, cache) -> L.Shard:
         return L.Shard()
     if not _sharded(mesh):
         return L.Shard(mesh)
-    if cfg.fsdp:
-        raise NotImplementedError("FSDP over prepacked W4A8 weights is not ported")
     if cache is not None and "page_table" in cache:
         raise NotImplementedError("a sharded W4A8 forward takes a dense cache (the Engine's "
                                   "paged pool runs on one device, as the reference's)")
@@ -391,26 +445,51 @@ def apply_quantized_lm(
     tokens: torch.Tensor,
     cache: Optional[Params] = None,
     mesh=None,
+    last_logit_only: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """W4A8 serving forward (dense family), logits in the model dtype.
-    Cache tensors are written in place; the returned cache dict carries the
-    advanced length.  On a mesh ``qparams`` is the rank's shard,
-    ``tokens`` its rows (``lm.local_rows``) and the logits theirs over the
-    whole vocabulary."""
+    """W4A8 serving forward (dense family), logits in the model dtype (the
+    last position's only with ``last_logit_only``).  Cache tensors are
+    written in place; the returned cache dict carries the advanced length.
+    On a mesh ``qparams`` is the rank's shard, ``tokens`` its rows
+    (``lm.local_rows``) and the logits theirs over the whole
+    vocabulary."""
     _check_dense(cfg)
     shard = _shard_of(cfg, mesh, cache)
     b, s = tokens.shape
     r2 = rot.plan_rotation(cfg.d_ff)
+    specs = quantized_param_specs(cfg)
     offset, positions, paged = L.forward_cache_ctx(cache, b, s, tokens.device)
-    x = L.embed_lookup(qparams["embed"], tokens, shard).to(cfg.tdtype)
+    x = _embed(qparams, cfg, tokens, shard)
     for i, p in enumerate(qparams["layers"]):
+        p = _full_layer(p, specs["layers"][0], shard)
         x = x + _w4a8_attention(p, _norm_only(x), cfg, i, cache, offset, positions, paged,
                                 shard)
         z2 = _norm_only(x)
         g_ = _qlinear(z2, p["w_gate"])
         u_ = _qlinear(z2, p["w_up"])
         x = x + _w4a8_down(L.silu_mul(g_, u_, x.dtype), p["w_down"], r2, shard)
-    return _head(_norm_only(x), qparams["head"], shard), L.advance_cache(cache, offset, s)
+    x = _norm_only(x)
+    if last_logit_only:
+        x = x[:, -1:]
+    head = _gather_data(qparams["head"], specs["head"], shard)
+    return _head(x, head, shard), L.advance_cache(cache, offset, s)
+
+
+def _embed(qparams: Params, cfg: ModelConfig, tokens: torch.Tensor, shard: L.Shard
+           ) -> torch.Tensor:
+    """The (rotated) embedding rows of ``tokens``: on a mesh from the
+    rank's vocabulary block, its FSDP block gathered."""
+    tok = shard.full(qparams["embed"], ("model", "data" if cfg.fsdp else None))
+    return L.embed_lookup(tok, tokens, shard).to(cfg.tdtype)
+
+
+def _full_layer(p: Params, specs: Params, shard: L.Shard) -> Params:
+    """A layer's packed weights whole over ``data`` (``_gather_data``; the
+    expert stacks' tiles one axis further in)."""
+    if shard.mesh is None or shard.mesh.axis_size("data") == 1:
+        return p
+    return {k: (_gather_data(v, specs[k], shard, lead=1 if v["packed"].dim() == 4 else 0)
+                if isinstance(v, dict) and "packed" in v else v) for k, v in p.items()}
 
 
 def apply_bvq_lm(
@@ -470,8 +549,10 @@ def _shard_experts(qw: Params, name: str, cfg: ModelConfig, mesh) -> Params:
     sw = (torch.repeat_interleave(qw["sw"], split, dim=0) if name == "w_down" else
           split_experts(qw["sw"], name, cfg.n_experts, split))
     packed = shard_leaf(packed, ("model", None, None), mesh)
-    return {"packed": torch.stack([prepack(w) for w in packed]),
-            "sw": shard_leaf(sw, ("model", None, None), mesh)}
+    stack = torch.stack([prepack(w) for w in packed])
+    if cfg.fsdp and _sharded(mesh):  # K over data: the K64 tiles of every local expert
+        stack = _data_block(stack, 2, mesh)
+    return {"packed": stack, "sw": shard_leaf(sw, ("model", None, None), mesh)}
 
 
 def _dequant_experts(qw: Params, dtype: torch.dtype) -> torch.Tensor:
@@ -512,12 +593,13 @@ def quantize_moe_lm(params: Params, cfg: ModelConfig, mesh=None) -> Params:
     packed, every layer through ``quantize_moe_layer`` (on a mesh, the
     rank's shard)."""
     tok = params["embed"]["tok"]
+    fs = "data" if cfg.fsdp else None
     if _sharded(mesh):
         from repro_torch.models.lm import shard_leaf
-        tok = shard_leaf(tok, ("model", None), mesh)
+        tok = shard_leaf(tok, ("model", fs), mesh)
     return {
         "embed": tok,
-        "head": _quant_pack(params["embed"]["head"].float(), _lin_in(), mesh),
+        "head": _quant_pack(params["embed"]["head"].float(), _lin_in(fs), mesh),
         "final_norm": params["final_norm"],
         "layers": [quantize_moe_layer(lp, cfg, mesh) for lp in params["layers"]],
     }
@@ -553,9 +635,11 @@ def apply_quantized_moe_lm(
     tokens: torch.Tensor,
     cache: Optional[Params] = None,
     mesh=None,
+    last_logit_only: bool = False,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """W4A8 MoE forward over a dense cache or none: W4A8 attention linears,
-    the head through the W4A8 kernel, logits in the model dtype.  Without
+    the head through the W4A8 kernel, logits in the model dtype (the last
+    position's only with ``last_logit_only``).  Without
     a mesh the experts are dequantized per layer into the dense combine
     (the reference's ``mesh=None`` branch); on a mesh (of one rank too, as
     in the reference) ``qparams`` is the rank's shard, built with the same
@@ -567,9 +651,11 @@ def apply_quantized_moe_lm(
         raise NotImplementedError("the W4A8 MoE forward takes a dense cache, as the reference's")
     shard = _shard_of(cfg, mesh, cache)
     b, s = tokens.shape
+    specs = quantized_moe_param_specs(cfg)
     offset, positions, paged = L.forward_cache_ctx(cache, b, s, tokens.device)
-    x = L.embed_lookup(qparams["embed"], tokens, shard).to(cfg.tdtype)
+    x = _embed(qparams, cfg, tokens, shard)
     for i, p in enumerate(qparams["layers"]):
+        p = _full_layer(p, specs["layers"][0], shard)
         x = x + _w4a8_attention(p, L.rmsnorm(p["ln1"], x), cfg, i, cache, offset, positions,
                                 paged, shard)
         z2 = L.rmsnorm(p["ln2"], x)
@@ -581,7 +667,10 @@ def apply_quantized_moe_lm(
             experts[name] = _dequant_experts(p[name], x.dtype)
         x = x + L.moe_apply_dense(experts, z2, cfg)
         del experts
-    logits = _head(L.rmsnorm(qparams["final_norm"], x), qparams["head"], shard)
+    x = L.rmsnorm(qparams["final_norm"], x)
+    if last_logit_only:
+        x = x[:, -1:]
+    logits = _head(x, _gather_data(qparams["head"], specs["head"], shard), shard)
     return logits, L.advance_cache(cache, offset, s)
 
 
@@ -622,11 +711,13 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device, mesh=No
         return _finish({"packed": convert.as_tensor(d["packed"], device, torch.int8),
                         "sw": f32(d["sw"])}, spec, mesh)
 
+    fs = "data" if cfg.fsdp else None
+
     def vocab_block(t):
         if not _sharded(mesh):
             return t
         from repro_torch.models.lm import shard_leaf
-        return shard_leaf(t, ("model", None), mesh)
+        return shard_leaf(t, ("model", fs), mesh)
 
     def qk_extra(lp):
         return {k: fp(a) for k, a in lp.get("qk_extra", {}).items()}
@@ -636,7 +727,7 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device, mesh=No
         sp = quantized_param_specs(cfg)["layers"][0] if _sharded(mesh) else {}
         return {
             "embed": vocab_block(fp(tree["embed"])),
-            "head": qw(tree["head"], _lin_in()),
+            "head": qw(tree["head"], _lin_in(fs)),
             "layers": [
                 {**{name: qw(lp[name], sp.get(name)) for name in names},
                  "qk_extra": qk_extra(lp)}
@@ -685,8 +776,120 @@ def params_from_numpy(tree: Params, cfg: ModelConfig, mode: str, device, mesh=No
 
         return {
             "embed": vocab_block(fp(tree["embed"])),
-            "head": qw(tree["head"], _lin_in()),
+            "head": qw(tree["head"], _lin_in(fs)),
             "final_norm": {"g": fp(tree["final_norm"]["g"])},
             "layers": [moe_layer(lp) for lp in layers],
         }
     raise ValueError(f"params_from_numpy: unknown mode {mode!r}")
+
+
+# ---------------------------------------------------------------------------
+# Abstract trees and rank shards (the dry-run's quantized cells)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _packed_meta(k: int, n: int, lead=()) -> Params:
+    return {"packed": _meta(lead + (k // 2, n), torch.int8),
+            "sw": _meta(lead + (1, n), torch.float32)}
+
+
+def _abstract_dense(cfg: ModelConfig) -> Params:
+    d, h, kv, hd, f = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff
+    dt = cfg.tdtype
+
+    def layer():
+        return {"wq": _packed_meta(d, h * hd), "wk": _packed_meta(d, kv * hd),
+                "wv": _packed_meta(d, kv * hd), "wo": _packed_meta(h * hd, d),
+                "w_gate": _packed_meta(d, f), "w_up": _packed_meta(d, f),
+                "w_down": _packed_meta(f, d),
+                "qk_extra": ({"q_norm": _meta((hd,), dt), "k_norm": _meta((hd,), dt)}
+                             if cfg.qk_norm else {})}
+
+    return {"embed": _meta((cfg.vocab_padded, d), dt), "head": _packed_meta(d, cfg.vocab_padded),
+            "layers": [layer() for _ in range(cfg.n_layers)]}
+
+
+def _abstract_moe(cfg: ModelConfig) -> Params:
+    """The W4A8 MoE tree in the port's (E, K/2, F) expert layout."""
+    d, h, kv, hd, f, e = cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.hd, cfg.d_ff, cfg.n_experts
+    dt = cfg.tdtype
+
+    def layer():
+        return {"ln1": {"g": _meta((d,), dt)}, "ln2": {"g": _meta((d,), dt)},
+                "wq": _packed_meta(d, h * hd), "wk": _packed_meta(d, kv * hd),
+                "wv": _packed_meta(d, kv * hd), "wo": _packed_meta(h * hd, d),
+                "router": _meta((d, e), torch.float32),
+                "w_gate": _packed_meta(d, f, (e,)), "w_up": _packed_meta(d, f, (e,)),
+                "w_down": _packed_meta(f, d, (e,))}
+
+    return {"embed": _meta((cfg.vocab_padded, d), dt), "head": _packed_meta(d, cfg.vocab_padded),
+            "final_norm": {"g": _meta((d,), dt)},
+            "layers": [layer() for _ in range(cfg.n_layers)]}
+
+
+def abstract_quantized(cfg: ModelConfig, tp: int = 1) -> Tuple[Params, Params]:
+    """(the W4A8 target's tree as meta tensors, its specs): the
+    reference's ``abstract_quantized``, the packing (K/2, N) int8 + (1, N)
+    float32 scales as ``quantize_dense_lm`` makes it, in the port's
+    per-layer layout."""
+    _check_dense(cfg)
+    return _abstract_dense(cfg), quantized_param_specs(cfg)
+
+
+def abstract_quantized_moe(cfg: ModelConfig, tp: int = 1) -> Tuple[Params, Params]:
+    """The reference's ``abstract_quantized_moe``: the W4A8 MoE tree as meta
+    tensors with its experts stacked as the reference stores them at
+    model-axis size ``tp`` ((E * split, K/2, F / split), split where the
+    experts are fewer than the ranks), and its specs."""
+    _check_moe(cfg)
+    from repro_torch.models.lm import split_experts
+    tree = _abstract_moe(cfg)
+    split = L.moe_ff_split(cfg, tp)
+    for lp in tree["layers"]:
+        for name in ("w_gate", "w_up", "w_down"):
+            qw = lp[name]
+            sw = (torch.repeat_interleave(qw["sw"], split, dim=0) if name == "w_down" else
+                  split_experts(qw["sw"], name, cfg.n_experts, split))
+            lp[name] = {"packed": split_experts(qw["packed"], name, cfg.n_experts, split),
+                        "sw": sw}
+    return tree, quantized_moe_param_specs(cfg)
+
+
+def shard_quantized(tree: Params, cfg: ModelConfig, mesh=None) -> Params:
+    """A full W4A8 (or W4A8 MoE) tree with the reference's packing, in the
+    port's layout (``quantize_dense_lm`` / ``quantize_moe_lm`` before
+    prepacking: the experts (E, K/2, F)), real or meta tensors -> the
+    serving tree of this rank of ``mesh`` (of one device without one):
+    each packed weight cut to the rank's blocks and prepacked
+    (``_finish``), the experts split, cut and prepacked
+    (``_shard_experts``), the embedding's vocabulary block."""
+    moe = cfg.family is Family.MOE
+    specs = (quantized_moe_param_specs if moe else quantized_param_specs)(cfg)
+    fs = "data" if cfg.fsdp else None
+    lspec = specs["layers"][0]
+
+    def layer(lp):
+        out = {}
+        for k, v in lp.items():
+            if k in ("w_gate", "w_up", "w_down") and moe:
+                out[k] = _shard_experts(v, k, cfg, mesh)
+            elif isinstance(v, dict) and "packed" in v:
+                out[k] = _finish(v, lspec.get(k) if _sharded(mesh) else None, mesh)
+            else:
+                out[k] = v
+        return out
+
+    embed = tree["embed"]
+    if _sharded(mesh):
+        from repro_torch.models.lm import shard_leaf
+        embed = shard_leaf(embed, ("model", fs), mesh)
+    out = {"embed": embed,
+           "head": _finish(tree["head"], _lin_in(fs) if _sharded(mesh) else None, mesh),
+           "layers": [layer(lp) for lp in tree["layers"]]}
+    if "final_norm" in tree:
+        out["final_norm"] = tree["final_norm"]
+    return out

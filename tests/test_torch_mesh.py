@@ -61,7 +61,7 @@ def test_mesh_coordinates_and_backend(world):
         assert (r["data_index"], r["model_index"]) == (r["rank"] // 2, r["rank"] % 2)
         assert (r["backend"], r["transport"]) == ("gloo", "gloo-cpu")
         assert r["comm"] == {"calls": 1, "all_reduce_calls": 1, "bytes": 32,
-                             "seconds": r["comm"]["seconds"]}
+                             "all_reduce_bytes": 32, "seconds": r["comm"]["seconds"]}
 
 
 def test_collectives_values(world):
@@ -186,8 +186,10 @@ def test_pick_batch_axes_matches_jax(shape, batch):
 def test_chip_smoke_mesh_phases_dry_run():
     """chip_smoke.py's mesh phases at smoke size on the CPU
     (``--cpu-dry-run``): their own checks (bitwise W4A8 on (1, 2), rows,
-    the MoE layer's bounds, the training path's losses, restored bits and
-    elastic run) pass on gloo worlds of CPU ranks."""
+    the MoE layer's bounds, the launch cells against one device, the
+    dry-run's collectives against the world's, the training path's
+    losses, restored bits and elastic run) pass on gloo worlds of CPU
+    ranks."""
     import os
     import pathlib
     import subprocess
@@ -199,6 +201,7 @@ def test_chip_smoke_mesh_phases_dry_run():
                          env=dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path)))
     assert run.returncode == 0, run.stderr[-3000:]
     for phase in ("tp_path", "tp_bf16_path", "ep_layer", "ep_path", "ep_w4a8_path",
+                  "mamba2_cell_path", "w4a8_kvq8_cell_path", "dryrun_path",
                   "mesh_train_path"):
         assert f'"phase": "{phase}"' in run.stdout
     assert '"ok": true' not in run.stdout  # a dry run prints no result line

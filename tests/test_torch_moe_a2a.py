@@ -20,7 +20,11 @@ ranks, against the JAX package.
 
 Tolerance: float32 outputs within 1e-5 (observed <= 2e-6: the expert
 GEMMs run on other slot counts); the W4A8 path within 1e-5 too (its int32
-products are exact)."""
+products are exact).
+
+One gloo world per mesh shape runs every case of that shape, and one JAX
+subprocess computes every reference output (the a2a cases and the
+measured fault)."""
 import json
 import os
 import subprocess
@@ -114,14 +118,30 @@ _JAX_A2A = textwrap.dedent("""
                 p = {k: get(k) for k in ("router", "w_gate", "w_up", "w_down")}
                 y = L.moe_apply_a2a(p, x, cfg, mesh, seq_sharded=c["sp"])
         out[c["name"]] = np.asarray(y)
+    # the reference's fault: its e_loc > 1 a2a against its own dense combine
+    cfg = dataclasses.replace(configs.get_smoke("moonshot-v1-16b-a3b"), capacity_factor=4.0)
+    p = {k: jnp.asarray(z["fault/" + k]) for k in ("router", "w_gate", "w_up", "w_down")}
+    x = jnp.asarray(z["fault/x"])
+    dense = np.asarray(L.moe_apply_dense(p, x, cfg))
+    for d, m in ((1, 1), (1, 2), (2, 2)):
+        mesh = jax.sharding.Mesh(np.array(jax.devices()[:d * m]).reshape(d, m),
+                                 ("data", "model"))
+        with activate_mesh(mesh):
+            y = np.asarray(L.moe_apply_a2a(p, x, cfg, mesh, seq_sharded=False))
+        out[f"miss/{d}x{m}"] = np.asarray(float(np.abs(y - dense).max()))
     np.savez(os.path.join(root, "outputs.npz"), **out)
 """)
 
 
 @pytest.fixture(scope="module")
-def jax_a2a():
-    """Inputs of every case and the reference's a2a outputs (subprocess)."""
+def jax_a2a(dropless):
+    """Inputs of every case and the reference's a2a outputs, with its
+    measured fault on the dropless case (one subprocess)."""
     cases, arrays = [], {}
+    _, moe0, x0, _ = dropless
+    arrays["fault/x"] = x0
+    for k, v in moe0.items():
+        arrays[f"fault/{k}"] = v
     for i, (name, arch, fields, mesh, sp, quant) in enumerate(AGAINST_JAX_A2A):
         tcfg = C.with_fields(tconfigs.get_smoke(arch), **fields)
         jcfg = C.with_fields(jconfigs.get_smoke(arch), **fields)
@@ -156,22 +176,29 @@ def jax_a2a():
 
 
 @pytest.fixture(scope="module")
-def port_a2a(jax_a2a):
+def worlds(jax_a2a, dropless):
+    """Per mesh shape one world running its cases: the cases against the
+    reference's a2a, and the dropless case with and without sequence
+    sharding -> ({name: assembled output}, {(mesh, sp): per-rank results})."""
     cases, _ = jax_a2a
-    out = {}
-    for mesh in sorted({tuple(c["mesh"]) for c in cases}):
+    cfg, moe, x, _ = dropless
+    out, several = {}, {}
+    for mesh in sorted({tuple(c["mesh"]) for c in cases} | set(DROPLESS)):
         mine = [c for c in cases if tuple(c["mesh"]) == mesh]
+        extra = [(cfg, moe, x, sp, False) for sp in (False, True)] if mesh in DROPLESS else []
         res = tmesh.spawn(C.moe_layer_case, *mesh, device="cpu",
-                          args=([c["port"] for c in mine],))
+                          args=([c["port"] for c in mine] + extra,))
         for i, c in enumerate(mine):
             out[c["name"]] = C.assemble([r[i] for r in res], c["port"][2].shape)
-    return out
+        for j, sp in enumerate((False, True)[:len(extra)]):
+            several[(mesh, sp)] = [r[len(mine) + j] for r in res]
+    return out, several
 
 
 @pytest.mark.parametrize("name", [c[0] for c in AGAINST_JAX_A2A])
-def test_a2a_matches_jax_a2a_where_a_rank_holds_one_expert(jax_a2a, port_a2a, name):
+def test_a2a_matches_jax_a2a_where_a_rank_holds_one_expert(jax_a2a, worlds, name):
     _, want = jax_a2a
-    np.testing.assert_allclose(port_a2a[name], want[name], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(worlds[0][name], want[name], atol=ATOL, rtol=0)
 
 
 def test_capacity_drops_happen(jax_a2a):
@@ -202,53 +229,23 @@ def dropless():
 
 @pytest.mark.parametrize("mesh", DROPLESS, ids=lambda m: f"{m[0]}x{m[1]}")
 @pytest.mark.parametrize("sp", [False, True], ids=["nosp", "sp"])
-def test_a2a_matches_dense_where_a_rank_holds_several_experts(dropless, mesh, sp):
+def test_a2a_matches_dense_where_a_rank_holds_several_experts(dropless, worlds, mesh, sp):
     cfg, moe, x, dense = dropless
     assert cfg.n_experts // mesh[1] > 1
-    res = tmesh.spawn(C.moe_layer_case, *mesh, device="cpu", args=([(cfg, moe, x, sp, False)],))
-    np.testing.assert_allclose(C.assemble([r[0] for r in res], x.shape), dense, atol=ATOL,
-                               rtol=0)
+    res = worlds[1][(mesh, sp)]
+    np.testing.assert_allclose(C.assemble(res, x.shape), dense, atol=ATOL, rtol=0)
     # autograd through the a2a is refused where the model ranks share their tokens
-    assert [r[0]["refused"] for r in res] == [None if sp else mesh[1] > 1] * len(res)
+    assert [r["refused"] for r in res] == [None if sp else mesh[1] > 1] * len(res)
 
 
-_JAX_FAULT = textwrap.dedent("""
-    import os, sys, dataclasses
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    os.environ["JAX_PLATFORMS"] = "cpu"
-    import numpy as np, jax, jax.numpy as jnp
-    from repro import configs
-    from repro.launch.mesh import activate_mesh
-    from repro.models import layers as L
-    cfg = dataclasses.replace(configs.get_smoke("moonshot-v1-16b-a3b"), capacity_factor=4.0)
-    z = np.load(sys.argv[1])
-    p = {k: jnp.asarray(z[k]) for k in ("router", "w_gate", "w_up", "w_down")}
-    x = jnp.asarray(z["x"])
-    dense = np.asarray(L.moe_apply_dense(p, x, cfg))
-    for d, m in ((1, 1), (1, 2), (2, 2)):
-        mesh = jax.sharding.Mesh(np.array(jax.devices()[:d * m]).reshape(d, m),
-                                 ("data", "model"))
-        with activate_mesh(mesh):
-            y = np.asarray(L.moe_apply_a2a(p, x, cfg, mesh, seq_sharded=False))
-        print("miss", d, m, float(np.abs(y - dense).max()))
-""")
-
-
-def test_reference_a2a_misses_its_dense_combine_with_several_experts_a_rank(dropless):
+def test_reference_a2a_misses_its_dense_combine_with_several_experts_a_rank(jax_a2a):
     """The reference's fault, measured: with nothing dropped its a2a equals
     its dense combine at (1, 1), where a rank holds all 8 experts but the
     exchange is the identity, and misses it at (1, 2) and (2, 2), where a
     rank holds 4."""
-    _, moe, x, _ = dropless
-    with tempfile.TemporaryDirectory() as root:
-        path = os.path.join(root, "moe.npz")
-        np.savez(path, x=x, **moe)
-        env = dict(os.environ, PYTHONPATH=os.pathsep.join(sys.path))
-        run = subprocess.run([sys.executable, "-c", _JAX_FAULT, path], capture_output=True,
-                             text=True, env=env, timeout=600)
-    assert run.returncode == 0, run.stderr[-3000:]
-    miss = {(int(d), int(m)): float(v) for _, d, m, v in
-            (ln.split() for ln in run.stdout.splitlines() if ln.startswith("miss"))}
+    _, want = jax_a2a
+    miss = {(1, 1): float(want["miss/1x1"]), (1, 2): float(want["miss/1x2"]),
+            (2, 2): float(want["miss/2x2"])}
     print(f"reference a2a against its dense combine: {miss}")
     assert miss[(1, 1)] <= ATOL
     assert miss[(1, 2)] > REFERENCE_MISS and miss[(2, 2)] > REFERENCE_MISS

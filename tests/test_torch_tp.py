@@ -5,12 +5,19 @@ weights, over local gloo worlds of CPU ranks at meshes (1, 2), (2, 2),
 4), a head count the model axis does not divide (attention replicated),
 Megatron sequence sharding on and off and once per block, FSDP, the VLM's
 image tokens and the MoE family's dense combine over gathered experts.
-One world per mesh runs every case.
+One world per mesh runs every case, and the ``launch.steps`` cells whose
+collectives the dry-run's meta trace must reproduce
+(``test_meta_collectives_match_the_world``).
 
 Tolerances (float32 smoke configs): logits within 1e-5 of the JAX
 function's (observed <= 4e-6: the sharded sums and the attention's head
 groups run in other orders); the greedy tokens of a prefill and three
 decode steps over the dense cache equal, their step logits within 1e-5.
+The same holds for the SSM (mamba2), hybrid (zamba2) and audio (whisper)
+families, whose blocks regroup their contiguous shards per layer (one
+all-gather of the in-projection, the gated norm's sum of squares
+all-reduced), and for the dense int8 KV cache (``kv_quant``; its decode
+steps run the reference's bfloat16 math on the CPU).
 
 A subprocess runs the JAX functions themselves on a forced 4-device CPU
 mesh (automatic axes; the explicit axes of ``make_cpu_mesh`` fail under
@@ -32,11 +39,14 @@ import jax.numpy as jnp
 import torch_mesh_cases as C
 from repro import configs as jconfigs
 from repro.models import lm as jlm
+from repro.models import whisper as jwhisper
 from repro_torch import configs as tconfigs
 from repro_torch.launch import mesh as tmesh
+from repro_torch.models.common import ShapeConfig
 
 ATOL = 1e-5
 MESHES = [(1, 2), (2, 2), (1, 4), (2, 1)]
+CELL_MESHES = [(1, 2)]  # the world that also runs the launch cells
 STEPS = 3
 
 
@@ -52,14 +62,29 @@ def _variants():
         ("six-heads", "deepseek-67b", {"n_heads": 6, "head_dim": 16}),  # 6 % 4 != 0
         ("internvl", "internvl2-1b", {}),  # image tokens
         ("grok-dense", "grok-1-314b", {}),  # MoE, dense combine
+        ("mamba2", "mamba2-1.3b", {}),  # SSM: 8 heads, 276 in-projection columns at tp 2
+        ("zamba2", "zamba2-7b", {}),  # hybrid: 2 groups + 1 tail block, one shared attention
+        ("whisper", "whisper-large-v3", {}),  # encoder-decoder, 16 frames
+        ("deepseek-kvq8", "deepseek-67b", {"kv_quant": True}),  # dense int8 KV cache
     ]
 
 
-def _jax_greedy(jcfg, params, tokens, steps, vision):
-    kw = {"vision_embeds": jnp.asarray(vision)} if vision is not None else {}
+def _jax_apply(jcfg):
+    if jcfg.family.value == "audio":
+        return lambda p, t, **k: jwhisper.apply_whisper(p, jcfg, None, t, **k)
+    return lambda p, t, **k: jlm.apply_lm(p, jcfg, None, t, **k)
+
+
+def _jax_greedy(jcfg, params, tokens, steps, extra):
+    kw = {k: jnp.asarray(v) for k, v in extra.items()}
+    vision = extra.get("vision_embeds")
     s0 = tokens.shape[1] + (vision.shape[1] if vision is not None else 0)
-    cache = jlm.init_cache(jcfg, tokens.shape[0], s0 + steps, tp=1)
-    fwd = jax.jit(lambda p, t, c, **k: jlm.apply_lm(p, jcfg, None, t, cache=c, **k))
+    if jcfg.family.value == "audio":
+        cache = jwhisper.init_whisper_cache(jcfg, tokens.shape[0], s0 + steps, tp=1)
+    else:
+        cache = jlm.init_cache(jcfg, tokens.shape[0], s0 + steps, tp=1)
+    apply = _jax_apply(jcfg)
+    fwd = jax.jit(lambda p, t, c, **k: apply(p, t, cache=c, **k))
     logits, cache = fwd(params, jnp.asarray(tokens), cache, **kw)
     out, toks = [np.asarray(logits[:, -1])], [np.asarray(logits[:, -1]).argmax(-1)]
     for _ in range(steps - 1):
@@ -77,25 +102,49 @@ def cases():
     for i, (name, arch, fields) in enumerate(_variants()):
         jcfg = C.with_fields(jconfigs.get_smoke(arch), **fields)
         tcfg = C.with_fields(tconfigs.get_smoke(arch), **fields)
-        params = jax.jit(lambda k: jlm.init_lm(k, jcfg, tp=1)[0])(jax.random.PRNGKey(i))
+        init = jwhisper.init_whisper if jcfg.family.value == "audio" else jlm.init_lm
+        params = jax.jit(lambda k: init(k, jcfg, tp=1)[0])(jax.random.PRNGKey(i))
         tree = jax.tree.map(np.asarray, params)
         tokens = rng.integers(0, jcfg.vocab, (4, 8)).astype(np.int32)
-        vision = (rng.standard_normal((4, jcfg.n_vision_tokens, jcfg.d_model)).astype(np.float32)
-                  if jcfg.n_vision_tokens else None)
-        kw = {"vision_embeds": jnp.asarray(vision)} if vision is not None else {}
-        logits, _ = jax.jit(lambda p, t, **k: jlm.apply_lm(p, jcfg, None, t, **k))(
-            params, jnp.asarray(tokens), **kw)
+        extra = {}
+        if jcfg.n_vision_tokens:
+            extra["vision_embeds"] = rng.standard_normal(
+                (4, jcfg.n_vision_tokens, jcfg.d_model)).astype(np.float32)
+        if jcfg.family.value == "audio":
+            extra["frames"] = rng.standard_normal(
+                (4, jcfg.n_audio_frames, jcfg.d_model)).astype(np.float32)
+        kw = {k: jnp.asarray(v) for k, v in extra.items()}
+        logits, _ = jax.jit(_jax_apply(jcfg))(params, jnp.asarray(tokens), **kw)
         want = {"logits": np.asarray(logits)}
-        want["step_logits"], want["tokens"] = _jax_greedy(jcfg, params, tokens, STEPS, vision)
-        out.append((name, (tcfg, tree, tokens.astype(np.int64), STEPS, vision), want))
+        want["step_logits"], want["tokens"] = _jax_greedy(jcfg, params, tokens, STEPS, extra)
+        out.append((name, (tcfg, tree, tokens.astype(np.int64), STEPS, extra or None), want))
     return out
+
+
+def _cells():
+    """(name, cfg, shape, quant): smoke cells of ``launch.steps.build_cell``
+    whose collectives the worlds log, one per family and kind."""
+    def shape(kind):
+        return ShapeConfig(kind, 16, 4, kind)
+
+    kvq8 = C.with_fields(tconfigs.get_smoke("deepseek-67b"), kv_quant=True)
+    return [("mamba2-decode", tconfigs.get_smoke("mamba2-1.3b"), shape("decode"), None),
+            ("zamba2-prefill", tconfigs.get_smoke("zamba2-7b"), shape("prefill"), None),
+            ("whisper-train", tconfigs.get_smoke("whisper-large-v3"), shape("train"), None),
+            ("qwen3-fsdp-train", C.with_fields(tconfigs.get_smoke("qwen3-8b"), fsdp=True),
+             shape("train"), None),
+            ("moonshot-decode", tconfigs.get_smoke("moonshot-v1-16b-a3b"), shape("decode"), None),
+            ("kvq8-decode", kvq8, shape("decode"), None),
+            ("w4a8+kvq8-decode", C.with_fields(tconfigs.get_smoke("qwen3-8b"), kv_quant=True),
+             shape("decode"), "w4a8")]
 
 
 @pytest.fixture(scope="module", params=MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
 def world(request, cases):
     data, model = request.param
-    return request.param, tmesh.spawn(C.lm_cases, data, model, device="cpu",
-                                      args=([c[1] for c in cases],))
+    cells = [c[1:] for c in _cells()] if request.param in CELL_MESHES else []
+    return request.param, tmesh.spawn(C.tp_world, data, model, device="cpu",
+                                      args=([c[1] for c in cases], cells))
 
 
 @pytest.mark.parametrize("variant", [v[0] for v in _variants()])
@@ -103,11 +152,26 @@ def test_sharded_apply_lm_matches_jax(world, cases, variant):
     _, results = world
     i = [c[0] for c in cases].index(variant)
     want = cases[i][2]
-    per_case = [r[i] for r in results]
+    per_case = [r["lm"][i] for r in results]
     np.testing.assert_allclose(C.collect(per_case, "logits"), want["logits"], atol=ATOL, rtol=0)
     np.testing.assert_allclose(C.collect(per_case, "step_logits"), want["step_logits"],
                                atol=ATOL, rtol=0)
     np.testing.assert_array_equal(C.collect(per_case, "tokens"), want["tokens"])
+
+
+@pytest.mark.parametrize("world", CELL_MESHES, indirect=True, ids=lambda m: f"{m[0]}x{m[1]}")
+@pytest.mark.parametrize("cell", [c[0] for c in _cells()])
+def test_meta_collectives_match_the_world(world, cell):
+    """The dry-run's trace of a cell on the meta mesh of the world's shape
+    logs the collectives (kind, calls, bytes) every rank of the real gloo
+    world (1, 2) ran for the same cell."""
+    (data, model), results = world
+    i = [c[0] for c in _cells()].index(cell)
+    _, cfg, shape, quant = _cells()[i]
+    meta = C.cell_comm(tmesh.make_mesh("meta", data, model), [(cfg, shape, quant)])[0]
+    assert meta.get("calls", 0) > 0
+    for r in results:
+        assert r["cells"][i] == meta
 
 
 _JAX_MESH = textwrap.dedent("""

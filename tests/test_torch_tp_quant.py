@@ -9,7 +9,10 @@ greedy tokens of a prefill and three decode steps over the dense cache),
 with virtual KV heads (n_kv 2 at tp 4) and with attention replicated (6
 heads at tp 4) too: the column shards' outputs are the full product's
 columns, the row shards' int32 accumulators sum exactly, and their
-activation codes come from the whole row's maximum.  The reference runs
+activation codes come from the whole row's maximum.  Under FSDP each rank
+keeps a ``data`` block of its prepacked tiles and gathers them before K1,
+so the (2, 2) and (2, 1) outputs are one device's bit for bit too.  The
+reference runs
 on one intra-op thread, as the ranks do.  Against
 the JAX function without a mesh: the greedy tokens equal, and the logits
 within 1e-5 once each int8 activation that a rounding flip made differ is
@@ -47,8 +50,11 @@ STEPS = 3
 def _variants():
     """(name, JAX config, port config)."""
     six = {"n_heads": 6, "head_dim": 16}  # attention replicated at tp 4
+    fsdp = {"fsdp": True}  # the prepacked tiles cut over data: (2, 2) and (2, 1)
     return [
         ("qwen3", jconfigs.get_smoke("qwen3-8b"), tconfigs.get_smoke("qwen3-8b")),
+        ("qwen3-fsdp", C.with_fields(jconfigs.get_smoke("qwen3-8b"), **fsdp),
+         C.with_fields(tconfigs.get_smoke("qwen3-8b"), **fsdp)),
         ("paper-target", jpair.TLM_SMOKE, tpair.TLM_SMOKE),
         ("six-heads", C.with_fields(jconfigs.get_smoke("qwen3-8b"), **six),
          C.with_fields(tconfigs.get_smoke("qwen3-8b"), **six)),

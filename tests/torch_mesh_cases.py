@@ -51,19 +51,21 @@ def _greedy(forward, cache, tokens, steps, **prefill_kw):
 
 def lm_cases(mesh, cases):
     """``cases``: list of (cfg, reference params as numpy, tokens (B, S)
-    numpy, decode steps, vision embeds or None).  Per case: the rank's
-    rows' logits without a cache, and, with steps > 0, the greedy tokens
-    and step logits over the dense cache (prefill then decode)."""
+    numpy, decode steps, extra inputs: None or {"vision_embeds" | "frames":
+    numpy (B, T, d)}).  Per case: the rank's rows' logits without a cache,
+    and, with steps > 0, the greedy tokens and step logits over the dense
+    cache (prefill then decode)."""
     out = []
-    for cfg, tree, tokens, steps, vision in cases:
+    for cfg, tree, tokens, steps, extra in cases:
         full = convert.params_from_numpy(tree, cfg, "cpu")
         params = lm.shard_params(full, lm.param_specs(cfg, mesh.tp), mesh, cfg)
         toks = _rows(mesh, tokens)
-        kw = {"vision_embeds": _rows(mesh, vision)} if vision is not None else {}
+        kw = {k: _rows(mesh, v) for k, v in (extra or {}).items()}
         with torch.no_grad():
             logits, _ = lm.apply_lm(params, cfg, toks, mesh=mesh, **kw)
             res = {"logits": logits.float().numpy()}
             if steps:
+                vision = (extra or {}).get("vision_embeds")
                 s_max = tokens.shape[1] + steps + (vision.shape[1] if vision is not None else 0)
                 cache = lm.init_cache(cfg, tokens.shape[0], s_max, "cpu", mesh=mesh)
 
@@ -76,6 +78,30 @@ def lm_cases(mesh, cases):
         res["keep"] = _keeps_rows(mesh, tokens.shape[0])
         out.append(res)
     return out
+
+
+def cell_comm(mesh, cells):
+    """``cells``: list of (cfg, ShapeConfig, quant).  Each cell of
+    ``launch.steps.build_cell`` run once on this mesh (real tensors from
+    the seed, or meta tensors on the dry-run's abstract mesh): the
+    collectives it ran, calls and bytes by kind."""
+    import contextlib
+
+    from repro_torch.launch.steps import build_cell
+
+    out = []
+    for cfg, shape, quant in cells:
+        cell = build_cell(cfg, shape, mesh, quant=quant)
+        mesh.comm.clear()
+        with torch.no_grad() if shape.kind != "train" else contextlib.nullcontext():
+            cell.fn(*cell.args)
+        out.append({k: v for k, v in mesh.comm.items() if k != "seconds"})
+    return out
+
+
+def tp_world(mesh, cases, cells):
+    """One world of tests/test_torch_tp.py: ``lm_cases`` and ``cell_comm``."""
+    return {"lm": lm_cases(mesh, cases), "cells": cell_comm(mesh, cells)}
 
 
 def quant_cases(mesh, cases):
@@ -113,6 +139,25 @@ def numpy_tree(tree):
                     tree)
 
 
+def probe_path(cfg: ModelConfig):
+    """The path of one tensor-parallel weight of the family, whose moment
+    slices the ZeRO-1 test reads."""
+    fam = cfg.family.value
+    if fam == "ssm":
+        return ("layers", 0, "mamba", "w_in")
+    if fam == "hybrid":
+        return ("layers", 0, 0, "mamba", "w_in")
+    if fam == "audio":
+        return ("decoder", 0, "self", "wq")
+    return ("layers", 0, "attn", "wq")
+
+
+def at_path(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
 def train_case(mesh, cfg, params_np, steps, seq_len, batch, ckpt_dir=None, save_at=None):
     """``steps`` Trainer steps on the mesh from the reference's weights:
     per step the loss and grad_norm; then the full params (gathered), and
@@ -135,11 +180,19 @@ def train_case(mesh, cfg, params_np, steps, seq_len, batch, ckpt_dir=None, save_
     out = {"hist": hist, "rank": mesh.rank, "params": numpy_tree(params),
            "mu": numpy_tree(mu)}
     if mesh.size > 1:
-        out["mu_local"] = {k: tuple(v.shape) for k, v in
-                           {"wq": tr.opt_state["mu"]["layers"][0]["attn"]["wq"],
-                            "tok": tr.opt_state["mu"]["embed"]["tok"]}.items()}
-        out["moment_specs"] = tr.moment_specs["mu"]["layers"][0]["attn"]["wq"]
+        path = probe_path(cfg)
+        out["mu_local"] = {"probe": tuple(at_path(tr.opt_state["mu"], path).shape),
+                           "tok": tuple(tr.opt_state["mu"]["embed"]["tok"].shape)}
+        out["moment_specs"] = at_path(tr.moment_specs["mu"], path)
     return out
+
+
+def train_world(mesh, trains, restores):
+    """One world's jobs: ``train_case`` for each (cfg, params_np, steps,
+    seq_len, batch, ckpt_dir, save_at) of ``trains``, then ``restore_case``
+    for each (cfg, ckpt_dir, seq_len, batch) of ``restores``."""
+    return {"train": [train_case(mesh, *case) for case in trains],
+            "restore": [restore_case(mesh, *case) for case in restores]}
 
 
 def restore_case(mesh, cfg, ckpt_dir, seq_len, batch):
