@@ -79,7 +79,10 @@ instants on a ``Tracer`` (``trace=``, off by default); a ``FlightRecorder``
 of per-round records (``EngineConfig.flight_ring``); and, every
 ``profile_every_n``-th round, each dispatched program bracketed by device
 synchronizations and timed on the engine's clock (``_profiled``,
-``profile_summary``).  None of it changes a token.
+``profile_summary``); while a torch profiler records, ranges at the
+engine's boundaries in its device trace (``tracing.region``: the prefills
+by role, the verify and draft copies, the accept loop, table uploads).
+None of it changes a token.
 
 The deprecated run-to-drain wrappers ``serve_sd``, ``serve_apsd`` and
 ``serve_batch`` survive as thin wrappers over ``Engine`` (each warns once);
@@ -135,7 +138,8 @@ from repro_torch.serving.paged_cache import (
 )
 from repro_torch.serving.prefix_cache import PrefixCache
 from repro_torch.serving.request import Request, RequestState
-from repro_torch.serving.tracing import NULL_TRACER, Tracer
+from repro_torch.serving.tracing import (ACCEPT, COPY_DRAFT, COPY_VERIFY, NULL_TRACER,
+                                         PREFILL_RANGES, TABLES, Tracer, region)
 
 __all__ = [
     "Engine",
@@ -924,16 +928,18 @@ class Engine:
             self.tracer.instant(f"row{slot}", "admit", cat="lifecycle", rid=req.rid)
             kind = req.kv_kind
             matched = req.prefix_match.tokens_matched if req.prefix_match is not None else 0
+            rows = max(req.prompt.shape[0] - 1 - matched, 0)
             kv = {}
             for role, model, iface, seq, stores, tables in (
                 ("target", self.target, self._t_iface, req.t_seq, self._t_stores, self._t_tables),
                 ("draft", self.draft, self._d_iface, req.d_seq, self._d_stores, self._d_tables),
             ):
-                kv[role] = self._profiled(
-                    "prefill", self._prefill_into, req, model, iface, seq, stores[kind],
-                    tables, slot, role,
-                    cost=lambda model=model, stores=stores: prefill_cost(
-                        model, stores[kind], req.prompt.shape[0], matched))
+                with region(PREFILL_RANGES[role], rows=rows, rid=req.rid):
+                    kv[role] = self._profiled(
+                        "prefill", self._prefill_into, req, model, iface, seq, stores[kind],
+                        tables, slot, role,
+                        cost=lambda model=model, stores=stores: prefill_cost(
+                            model, stores[kind], req.prompt.shape[0], matched))
             if self._prefix is not None:
                 if req.prefix_match is not None:
                     self._m_tokens_saved.inc(req.prefix_match.tokens_matched)
@@ -987,15 +993,18 @@ class Engine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
-    def _to_host(self, t: torch.Tensor) -> np.ndarray:
-        """A round's device-to-host copy, counted in ``host_copies_total``."""
+    def _to_host(self, t: torch.Tensor, copy: str) -> np.ndarray:
+        """A round's device-to-host copy, counted in ``host_copies_total``,
+        in the profiler range ``copy`` (``COPY_VERIFY`` or ``COPY_DRAFT``)."""
         self._m_host_copies.inc()
-        return t.cpu().numpy()
+        with region(copy):
+            return t.cpu().numpy()
 
     def _load_tables(self, active):
         t0 = self._now()
-        d_table, d_len0 = self._d_tables.load((s, r.d_seq) for s, r in active)
-        t_table, t_len0 = self._t_tables.load((s, r.t_seq) for s, r in active)
+        with region(TABLES):
+            d_table, d_len0 = self._d_tables.load((s, r.d_seq) for s, r in active)
+            t_table, t_len0 = self._t_tables.load((s, r.t_seq) for s, r in active)
         self._m_table_upload.inc(self._now() - t0)
         return d_table, d_len0, t_table, t_len0
 
@@ -1003,7 +1012,8 @@ class Engine:
         """(target, draft) page tables on the device for a WDOS step: one
         upload serves every slot (the rows retired mid-step are masked)."""
         t0 = self._now()
-        tables = self._t_tables.table_dev(), self._d_tables.table_dev()
+        with region(TABLES):
+            tables = self._t_tables.table_dev(), self._d_tables.table_dev()
         self._m_table_upload.inc(self._now() - t0)
         return tables
 
@@ -1107,7 +1117,7 @@ class Engine:
                                            self._d_tables.lengths + j, 1))
             if j < round_dl:
                 if any_sampled:
-                    last = self._to_host(logits[:, -1, :].float())
+                    last = self._to_host(logits[:, -1, :].float(), COPY_DRAFT)
                     q_cols.append(last)
                     nxt = np.argmax(last, axis=-1).astype(np.int32)
                     for slot, req in active:
@@ -1125,7 +1135,7 @@ class Engine:
         if any_sampled:
             drafts = np.stack(draft_cols, axis=1)
         else:
-            drafts = self._to_host(torch.stack(draft_cols, dim=1))
+            drafts = self._to_host(torch.stack(draft_cols, dim=1), COPY_DRAFT)
         t_verify0 = self._now()
         self.tracer.rec("engine", "draft_phase", t_draft0, t_verify0, cat="phase",
                         rows=len(active), dl=round_dl)
@@ -1139,29 +1149,30 @@ class Engine:
             self.target.params, window_dev, self._t_stores[k], t_table, t_len0), kvq,
             cost=lambda k: window_cost(self.target, self._t_stores[k], self._t_tables.lengths,
                                        round_dl + 1))
-        p_logits = self._to_host(v_logits.float())  # (B, round_dl+1, V)
+        p_logits = self._to_host(v_logits.float(), COPY_VERIFY)  # (B, round_dl+1, V)
         self.tracer.rec("engine", "verify_phase", t_verify0, self._now(), cat="phase",
                         rows=len(active))
 
         # ---- per-request accept / commit: a pure length update per row
         work: List[Tuple[Request, int]] = []
-        for slot, req in active:
-            dl = dls[slot]
-            sp = req.sampling
-            if sp.greedy:
-                new, n_acc = speculative_accept_greedy_host(drafts[slot], p_logits[slot], dl)
-            else:
-                q_logits = np.stack([q_cols[j][slot] for j in range(dl)])
-                new, n_acc = speculative_sample_host(
-                    req.accept_key(), drafts[slot], p_logits[slot], q_logits, dl,
-                    sp.temperature, sp.top_k, sp.top_p,
-                )
-            self._commit(slot, req, new, n_acc, dl, dl, work)
-            # both models wrote round_dl+1 positions; keep n_acc + 1
-            # (draft invariant: cache == committed[:-1], incl. straggler)
-            for seq in (req.t_seq, req.d_seq):
-                seq.advance(round_dl + 1)
-                seq.rewind(round_dl - n_acc, release_pages=False)
+        with region(ACCEPT):
+            for slot, req in active:
+                dl = dls[slot]
+                sp = req.sampling
+                if sp.greedy:
+                    new, n_acc = speculative_accept_greedy_host(drafts[slot], p_logits[slot], dl)
+                else:
+                    q_logits = np.stack([q_cols[j][slot] for j in range(dl)])
+                    new, n_acc = speculative_sample_host(
+                        req.accept_key(), drafts[slot], p_logits[slot], q_logits, dl,
+                        sp.temperature, sp.top_k, sp.top_p,
+                    )
+                self._commit(slot, req, new, n_acc, dl, dl, work)
+                # both models wrote round_dl+1 positions; keep n_acc + 1
+                # (draft invariant: cache == committed[:-1], incl. straggler)
+                for seq in (req.t_seq, req.d_seq):
+                    seq.advance(round_dl + 1)
+                    seq.rewind(round_dl - n_acc, release_pages=False)
         self._batcher.model_round(work)
 
     # -- fused WDOS rounds (par_mode="wdos") ---------------------------------
@@ -1259,7 +1270,7 @@ class Engine:
 
                 v_logits, d_logits = self._fused_dispatch("fused_wdos", verify, draft_step, kvq,
                                                           cost=fused_cost)
-                v_np = self._to_host(v_logits.float())  # (B, max_dl + 1, V)
+                v_np = self._to_host(v_logits.float(), COPY_VERIFY)  # (B, max_dl + 1, V)
             else:
                 d_logits = self._dispatch("draft_slot", draft_step, kvq, cost=draft_cost)
             # only drafting rows read the draft logits: the argmax on the
@@ -1267,50 +1278,53 @@ class Engine:
             if plan.draft_rows:
                 last = d_logits[:, -1, :]
                 if all(by_slot[s].sampling.greedy for s in plan.draft_rows):
-                    q_np, nxt = None, self._to_host(torch.argmax(last, dim=-1).to(torch.int32))
+                    q_np, nxt = None, self._to_host(torch.argmax(last, dim=-1).to(torch.int32),
+                                                    COPY_DRAFT)
                 else:
-                    q_np = self._to_host(last.float())
+                    q_np = self._to_host(last.float(), COPY_DRAFT)
                     nxt = np.argmax(q_np, axis=-1)
             slot_t1 = self._now()
             self._batcher.record_fused_slot(plan, slot_t1 - slot_t0, wv)
             if self.tracer.enabled:
                 self._trace_slot(plan, by_slot, slot_t0, slot_t1, tree=False)
 
-            # drafting rows: append the next proposal (the two-phase rule and
-            # the same (round, position) keys, so tokens match across modes)
-            for slot in plan.draft_rows:
-                req = by_slot[slot]
-                sp = req.sampling
-                if sp.greedy:
-                    req.pending.append(int(nxt[slot]))
-                else:
-                    req.pending.append(int(sample_token_host(
-                        req.draft_key(len(req.pending)), q_np[slot],
-                        sp.temperature, sp.top_k, sp.top_p)))
-                    req.pending_q.append(q_np[slot].copy())
+            with region(ACCEPT):
+                # drafting rows: append the next proposal (the two-phase rule
+                # and the same (round, position) keys, so tokens match across
+                # modes)
+                for slot in plan.draft_rows:
+                    req = by_slot[slot]
+                    sp = req.sampling
+                    if sp.greedy:
+                        req.pending.append(int(nxt[slot]))
+                    else:
+                        req.pending.append(int(sample_token_host(
+                            req.draft_key(len(req.pending)), q_np[slot],
+                            sp.temperature, sp.top_k, sp.top_p)))
+                        req.pending_q.append(q_np[slot].copy())
 
-            # verifying rows: accept / commit, then back to committed - 1
-            for slot in plan.verify_rows:
-                req = by_slot[slot]
-                dl, sp = req.pending_dl, req.sampling
-                drafts = np.asarray(req.pending, np.int64)
-                if sp.greedy:
-                    new, n_acc = speculative_accept_greedy_host(drafts, v_np[slot], dl)
-                else:
-                    new, n_acc = speculative_sample_host(
-                        req.accept_key(), drafts, v_np[slot], np.stack(req.pending_q), dl,
-                        sp.temperature, sp.top_k, sp.top_p,
-                    )
-                self._commit(slot, req, new, n_acc, dl, dl, work)
-                # the target wrote wv positions, the draft dl + 1 (with the
-                # straggler); both keep n_acc + 1
-                req.t_seq.advance(wv)
-                req.t_seq.rewind(wv - 1 - n_acc, release_pages=False)
-                req.d_seq.advance(dl + 1)
-                req.d_seq.rewind(dl - n_acc, release_pages=False)
-                req.clear_window()
-                if req.done:
-                    self._retire(slot)
+                # verifying rows: accept / commit, then back to committed - 1
+                for slot in plan.verify_rows:
+                    req = by_slot[slot]
+                    dl, sp = req.pending_dl, req.sampling
+                    drafts = np.asarray(req.pending, np.int64)
+                    if sp.greedy:
+                        new, n_acc = speculative_accept_greedy_host(drafts, v_np[slot], dl)
+                    else:
+                        new, n_acc = speculative_sample_host(
+                            req.accept_key(), drafts, v_np[slot], np.stack(req.pending_q), dl,
+                            sp.temperature, sp.top_k, sp.top_p,
+                        )
+                    self._commit(slot, req, new, n_acc, dl, dl, work)
+                    # the target wrote wv positions, the draft dl + 1 (with the
+                    # straggler); both keep n_acc + 1
+                    req.t_seq.advance(wv)
+                    req.t_seq.rewind(wv - 1 - n_acc, release_pages=False)
+                    req.d_seq.advance(dl + 1)
+                    req.d_seq.rewind(dl - n_acc, release_pages=False)
+                    req.clear_window()
+                    if req.done:
+                        self._retire(slot)
         self._batcher.model_round(work)
 
     def _fused_tree_round(self, active) -> None:
@@ -1374,25 +1388,27 @@ class Engine:
 
                 v_logits, d_logits = self._fused_dispatch("fused_tree", verify, draft_step, kvq,
                                                           cost=fused_cost)
-                v_np = self._to_host(v_logits.float())  # (B, W, V)
+                v_np = self._to_host(v_logits.float(), COPY_VERIFY)  # (B, W, V)
             else:
                 d_logits = self._dispatch("tree_draft_slot", draft_step, kvq, cost=draft_cost)
             if plan.draft_rows:  # tree growth reads every frontier row
-                d_np = self._to_host(d_logits.float())
+                d_np = self._to_host(d_logits.float(), COPY_DRAFT)
             slot_t1 = self._now()
             self._batcher.record_fused_slot(plan, slot_t1 - slot_t0, w, draft_width=w)
             if self.tracer.enabled:
                 self._trace_slot(plan, by_slot, slot_t0, slot_t1, tree=True)
 
-            for slot in plan.draft_rows:
-                _sample_tree_level(by_slot[slot], cfg, d_np[slot])
             moves_t = {k: ([], []) for k in self._kinds}
             moves_d = {k: ([], []) for k in self._kinds}
-            for slot in plan.verify_rows:
-                req = by_slot[slot]
-                self._tree_verify_commit(slot, req, v_np[slot], req.tree_dl, moves_t, moves_d, work)
-                if req.done:
-                    self._retire(slot)
+            with region(ACCEPT):
+                for slot in plan.draft_rows:
+                    _sample_tree_level(by_slot[slot], cfg, d_np[slot])
+                for slot in plan.verify_rows:
+                    req = by_slot[slot]
+                    self._tree_verify_commit(slot, req, v_np[slot], req.tree_dl, moves_t, moves_d,
+                                             work)
+                    if req.done:
+                        self._retire(slot)
             self._compact_pools(moves_t, moves_d)
         self._batcher.model_round(work)
 
@@ -1436,7 +1452,7 @@ class Engine:
                 cost=lambda k: window_cost(self.draft, self._d_stores[k], self._d_tables.lengths,
                                            w))
             if j < round_depth:
-                l_np = self._to_host(logits.float())
+                l_np = self._to_host(logits.float(), COPY_DRAFT)
                 for slot, req in active:
                     if not req.tree_full:
                         _sample_tree_level(req, cfg, l_np[slot])
@@ -1448,15 +1464,17 @@ class Engine:
             self.target.params, win[0], self._t_stores[k], t_table, t_len0, *win[1:]), kvq,
             cost=lambda k: window_cost(self.target, self._t_stores[k], self._t_tables.lengths,
                                        w))
-        p_logits = self._to_host(v_logits.float())  # (B, W, V)
+        p_logits = self._to_host(v_logits.float(), COPY_VERIFY)  # (B, W, V)
         self.tracer.rec("engine", "tree_verify", t_verify0, self._now(), cat="phase",
                         rows=len(active), spec="tree")
 
         work: List[Tuple[Request, int]] = []
         moves_t = {k: ([], []) for k in self._kinds}
         moves_d = {k: ([], []) for k in self._kinds}
-        for slot, req in active:
-            self._tree_verify_commit(slot, req, p_logits[slot], dls[slot], moves_t, moves_d, work)
+        with region(ACCEPT):
+            for slot, req in active:
+                self._tree_verify_commit(slot, req, p_logits[slot], dls[slot], moves_t, moves_d,
+                                         work)
         self._compact_pools(moves_t, moves_d)
         self._batcher.model_round(work)
 

@@ -1,6 +1,7 @@
 """Span tracer: per-request timelines exportable as Chrome-trace JSON
 (loadable in Perfetto / ``chrome://tracing``) and as structured JSONL
-(a copy of repro/serving/tracing.py, which imports no JAX either).
+(the ``Tracer`` a copy of repro/serving/tracing.py's, which imports no JAX
+either), and the profiler ranges the engine opens for the device trace.
 
 The point of tracing here is to make the WDOS schedule *visible*: with
 ``par_mode="wdos"`` different requests draft and verify out of phase
@@ -33,16 +34,82 @@ Export: ``to_chrome_trace()`` returns the Chrome Trace Event JSON dict
 (``{"traceEvents": [...]}``, complete/``"X"`` events with microsecond
 timestamps plus ``thread_name`` metadata per track); ``export(path)``
 writes it.  Load it in https://ui.perfetto.dev or ``chrome://tracing``.
+
+The ``Tracer`` is a host clock: its spans end when the host has enqueued
+the work, not when the device has run it.  The row track's ``prefill``
+span, for one, times the host's enqueue of both prefills (kept so, for
+parity with the reference's event stream).
+
+Device truth comes from a second, separate mechanism: profiler ranges.
+``region(name)`` opens ``torch.profiler.record_function(name)`` while a
+torch profiler is recording, and otherwise returns one shared no-op
+context.  The gate is a module flag test: with its ``with``, under a
+microsecond a boundary, where an ungated ``record_function`` costs ~15 us
+a call on the host even with no profiler running.
+The ranges sit in the profiler's own trace, on its clock, beside the
+kernels and copies they launch: a device operation belongs to the range in
+which its runtime launch call sits (the trace's ``correlation`` ids join
+the two).  The engine opens them at fixed names, never varying per call:
+
+* ``engine.prefill.target`` / ``engine.prefill.draft``: one request's
+  prefill into one pool (forward and scatter);
+* ``host.copy.verify``: the device-to-host copy of a round's verify logits;
+* ``host.copy.draft``: a copy of draft tokens or draft logits;
+* ``host.accept``: a round's per-row accept / sample and commit loop;
+* ``host.tables``: a page-table upload.
+
+``region(name, **args)`` carries numbers too (a prefill's ``rows`` and
+``rid``): the Chrome export drops a range's arguments, so a zero-length
+range named ``args.<name> k=v ...`` opens and closes just inside the range.
 """
 from __future__ import annotations
 
 import json
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, List, Optional, Tuple
 
-__all__ = ["Tracer", "NullTracer", "NULL_TRACER", "validate_chrome_trace"]
+import torch
+from torch.autograd import profiler as _autograd_profiler
+
+__all__ = ["Tracer", "NullTracer", "NULL_TRACER", "validate_chrome_trace", "region",
+           "profiling", "PREFILL_RANGES", "COPY_VERIFY", "COPY_DRAFT", "ACCEPT", "TABLES",
+           "ARGS_PREFIX"]
+
+PREFILL_RANGES = {"target": "engine.prefill.target", "draft": "engine.prefill.draft"}
+COPY_VERIFY = "host.copy.verify"
+COPY_DRAFT = "host.copy.draft"
+ACCEPT = "host.accept"
+TABLES = "host.tables"
+ARGS_PREFIX = "args."
+
+
+def profiling() -> bool:
+    """True while a torch profiler records (a module flag)."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+_NO_RANGE = nullcontext()
+
+
+@contextmanager
+def _noted(name: str, note: str):
+    """A range with a zero-length ``args.`` range at its start."""
+    with torch.profiler.record_function(name):
+        with torch.profiler.record_function(note):
+            pass
+        yield
+
+
+def region(name: str, **args):
+    """A profiler range named ``name`` while a torch profiler records,
+    carrying ``args`` as ``args.<name> k=v ...``; else a shared no-op."""
+    if not profiling():
+        return _NO_RANGE
+    if not args:
+        return torch.profiler.record_function(name)
+    return _noted(name, ARGS_PREFIX + name + "".join(f" {k}={v}" for k, v in args.items()))
 
 
 class Tracer:
