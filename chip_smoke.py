@@ -313,18 +313,21 @@ KERNELS = {
     # K1's int32 epilogue: the row-parallel shards' accumulators
     "w4a8_matmul_int32": ("src/repro_torch/kernels/csrc/w4a8_matmul.cu",
                           "src/repro/kernels/w4a8_matmul.py:69"),
+    # K8: the reference's prefill attention is plain jnp (models/layers.py)
+    "prefill_attention": ("src/repro_torch/kernels/csrc/prefill_attn.cu", "none"),
 }
 # the path whose run each kernel's launches are read from (counts zeroed
 # just before that path, read just after)
 PATH_OF = {"w4a8_matmul": "main_path", "block_rotate": "main_path", "bvq_matmul": "main_path",
            "paged_attention": "main_path", "paged_attention_int8": "int8_path",
            "paged_attention_tree": "tree_path", "paged_attention_int8_tree": "tree_path",
-           "decode_attention_int8": "kvq8_path", "w4a8_matmul_int32": "tp_path"}
+           "decode_attention_int8": "kvq8_path", "w4a8_matmul_int32": "tp_path",
+           "prefill_attention": "main_path"}
 # kernels no path launches (every kernel has its path)
 NO_PATH = set()
 # the CUDA symbols of the port's kernels, as the profiler names them
 PORT_SYMBOLS = ("w4a8_mma_kernel", "bvq_mma_kernel", "block_rotate_kernel", "paged_attn_kernel",
-                "decode_attn_int8_kernel")
+                "decode_attn_int8_kernel", "prefill_attn_kernel")
 
 
 def emit(**record) -> None:
@@ -727,6 +730,59 @@ def check_decode_int8(dev, timer, g, b, s, kvs, hd, length, group=1):
     )
 
 
+def check_prefill(dev, timer, g, sq, s, h, kvs, hd, tail=15):
+    """K8 (prefill flash attention) over a dense (1, s, kvs, hd) bf16 cache
+    whose first ``sq`` slots the prompt wrote, against its plain version:
+    each element within 2 bf16 units in the last place of its row's
+    largest plain output (one query row of one head; only the order of the
+    sums differs, and a limit set by the call's largest output, causal row
+    0 = v[0], would be as large as the values of rows over 1k keys).
+    ``max_abs_err`` and ``tol`` are the error and the limit at the element
+    that comes nearest its limit, ``err_row_ulps`` the largest error in
+    row units.  The last ``tail`` rows as a prefix hit's tail extend bit
+    for bit equal to the full call's; the cache poisoned with NaN past the
+    prompt changes no bit."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.prefill_attn import prefill_attention
+    from repro_torch.models.layers import flash_attention_plain
+
+    q = torch.randn((1, sq, h, hd), generator=g, device=dev).to(torch.bfloat16)
+    k = torch.zeros((1, s, kvs, hd), dtype=torch.bfloat16, device=dev)
+    v = torch.zeros_like(k)
+    k[:, :sq] = torch.randn((1, sq, kvs, hd), generator=g, device=dev).to(torch.bfloat16)
+    v[:, :sq] = torch.randn((1, sq, kvs, hd), generator=g, device=dev).to(torch.bfloat16)
+    got = prefill_attention(q, k, v, True)
+    want = flash_attention_plain(q, k, v, True)
+    top = want.float().abs().amax(-1, keepdim=True)
+    row_ulp = torch.exp2(torch.floor(torch.log2(top.clamp_min(2.0 ** -126))) - 7)
+    diff = (got.float() - want.float()).abs()
+    worst = int((diff / row_ulp).argmax())
+    ratio = float((diff / row_ulp).flatten()[worst])
+    rows_m = bool(torch.equal(prefill_attention(q[:, sq - tail:], k, v, True, sq - tail),
+                              got[:, sq - tail:]))
+    kp, vp = k.clone(), v.clone()
+    kp[:, sq:] = float("nan")
+    vp[:, sq:] = float("nan")
+    poisoned = prefill_attention(q, kp, vp, True)
+    del kp, vp
+    # library yardstick: SDPA over the prompt's keys, heads first, GQA
+    ql, kl, vl = (t.transpose(1, 2) for t in (q, k[:, :sq], v[:, :sq]))
+    pairs = sq * (sq + 1) / 2  # (row, key) pairs a causal prompt scores
+    bound, by = bound_ms(2 * 2 * sq * h * hd + 2 * 2 * sq * kvs * hd, 4.0 * pairs * h * hd, "bf16")
+    return dict(
+        max_abs_err=float(diff.flatten()[worst]),
+        tol=float(2 * row_ulp.expand_as(diff).flatten()[worst]), err_row_ulps=ratio,
+        repeat_bitwise_equal=bool(torch.equal(got, prefill_attention(q, k, v, True))),
+        rows_independent_of_M=rows_m,
+        poisoned_tail_bitwise_equal=bool(torch.equal(got, poisoned)),
+        kernel_ms=timer.ms(lambda: prefill_attention(q, k, v, True)),
+        plain_ms=timer.ms(lambda: flash_attention_plain(q, k, v, True), iters=5),
+        library_ms=timer.ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                                                   enable_gqa=True)),
+        bound_ms=bound, bound_by=by,
+    )
+
+
 def _family_kernel_cases(dev, timer, g, mb, win, tw, tlens, long_lens):
     """The shapes the public configurations' paths give the kernels:
     grouped-query paged attention (Qwen3-8B: 8 kv heads of G = 4;
@@ -929,6 +985,21 @@ def phase_kernels(dev, seed):
         cases.append(("decode_attention_int8",
                       f"full LLaMA2-7B cache B=4 S=4096 KVS=32 G=1 hd=128 length={length}",
                       lambda n=length: check_decode_int8(dev, timer, g, 4, 4096, 32, 128, n)))
+    # K8 at the serving cells' prefills: prompts of 1,020 (the traffic's
+    # median) and 3,071 rows (its longest) into the 4,112-slot dense cache;
+    # then the paper pair's main path (s_max 256, target 32 heads of 128,
+    # draft 12 of 64)
+    for model, h in (("Qwen3-8B", 32), ("Nemotron-4-15B", 48)):
+        for sq in (1020, 3071):
+            cases.append(("prefill_attention",
+                          f"{model} prefill Sq={sq} H={h} KVS=8 hd=128 cache 4112 bf16",
+                          lambda sq=sq, h=h: check_prefill(dev, timer, g, sq, 4112, h, 8, 128)))
+    cases += [
+        ("prefill_attention", "target prefill Sq=127 H=32 KVS=32 hd=128 cache 256 bf16",
+         lambda: check_prefill(dev, timer, g, 127, 256, 32, 32, 128)),
+        ("prefill_attention", "draft prefill Sq=127 H=12 KVS=12 hd=64 cache 256 bf16",
+         lambda: check_prefill(dev, timer, g, 127, 256, 12, 12, 64)),
+    ]
     cases += _family_kernel_cases(dev, timer, g, mb, win, tw, tlens, long_lens)
     cases += _shard_kernel_cases(dev, timer, g)
     summary, failed = {}, []

@@ -57,6 +57,7 @@ charge = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signatures: every entry point returns cudaGetLastError() as int
 _SIGNATURES = {
     "repro_w4a8_matmul": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
@@ -67,6 +68,8 @@ _SIGNATURES = {
                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
     "repro_decode_attn_int8": (_P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _I, _I, _I, _P),
+    "repro_prefill_attn": (_P, _P, _P, _P, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                           _I, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

@@ -11,15 +11,16 @@ target, the BVQ draft, the bf16 ``lm.apply_lm``): a paged pool runs
 ``kernels.paged_attn.paged_attention`` (the CUDA kernel on the card, its
 plain version on the CPU); a dense fp cache and the cache-free case run
 the plain torch ``decode_attention`` / ``flash_attention``, as they are
-plain jnp in the reference; a dense int8 cache (``kv_quant``) runs a
-one-token step through K7 (``kernels.decode_attn``) on the card and the
-reference's bfloat16 ``_decode_attention`` math on the CPU.  The dense
-blocks' linears are plain torch matmuls (``linear``), as the reference's
-are ``einsum``s outside any Pallas kernel.  The MoE block runs the
-reference's single-device dense combine (``moe_apply_dense``: every token
-through every expert, gated by the softmax of its top-k router logits) as
-batched torch products over the expert axis, in the same fixed row
-blocks.
+plain jnp in the reference (a bf16 / fp16 ``flash_attention`` on the
+card runs K8, ``kernels.prefill_attn``); a dense int8 cache
+(``kv_quant``) runs a one-token step through K7 (``kernels.decode_attn``)
+on the card and the reference's bfloat16 ``_decode_attention`` math on
+the CPU.  The dense blocks' linears are plain torch matmuls (``linear``),
+as the reference's are ``einsum``s outside any Pallas kernel.  The MoE
+block runs the reference's single-device dense combine
+(``moe_apply_dense``: every token through every expert, gated by the
+softmax of its top-k router logits) as batched torch products over the
+expert axis, in the same fixed row blocks.
 
 On a mesh (``launch/mesh.DeviceMesh``, one process per rank) every block
 takes its rank's shard of the parameters (``*_specs`` give the layout, the
@@ -53,6 +54,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.quantization import div_scalar
 from repro_torch.kernels.decode_attn import decode_attention_int8
 from repro_torch.kernels.paged_attn import paged_attention
+from repro_torch.kernels.prefill_attn import prefill_attention
 from repro_torch.launch import mesh as M
 from repro_torch.models.common import ModelConfig
 
@@ -95,6 +97,7 @@ __all__ = [
     "decode_attention_int8_step",
     "advance_cache",
     "flash_attention",
+    "flash_attention_plain",
     "PagedCache",
     "kv_quantize",
     "paged_attention_update",
@@ -305,7 +308,6 @@ def flash_attention(
     v: torch.Tensor,
     causal: bool,
     q_offset: int = 0,
-    kv_chunk: int = 1024,
 ) -> torch.Tensor:
     """Streaming-softmax attention over KV chunks (prefill).  Dots take
     model-dtype operands with float32 accumulation; softmax statistics and
@@ -317,7 +319,22 @@ def flash_attention(
     call's row count (a prefix-cache hit's 7-15-row tail extend against the
     full prefill, on an H100).  The padded rows are dropped.  Meta tensors
     (the dry-run's trace) run every row in one block: the same products,
-    traced once."""
+    traced once.
+
+    On the card, a bf16 or fp16 call that autograd does not record runs K8
+    (``kernels/prefill_attn.py``) instead: one launch for the whole call,
+    the same function at the same precision, its rows' bits independent
+    of the call's row count as here.  CPU and meta tensors, float32, and
+    calls recorded for a backward (training) run the blocks below."""
+    if _k8_takes(q, k, v):
+        return prefill_attention(q, k, v, causal, q_offset)
+    return flash_attention_plain(q, k, v, causal, q_offset)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                          q_offset: int = 0, kv_chunk: int = 1024) -> torch.Tensor:
+    """``flash_attention``'s plain torch version (K8's plain version): the
+    query rows in ``ROW_BLOCK`` blocks, each over the keys in chunks."""
     sq = q.shape[1]
     if q.device.type == "meta":
         return _flash_block(q, k, v, causal, q_offset, kv_chunk)
@@ -329,6 +346,15 @@ def flash_attention(
                            q_offset + i, kv_chunk)
         outs.append(out[:, :ROW_BLOCK - pad])
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def _k8_takes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """K8 runs a CUDA call in bf16 or fp16 that autograd does not record
+    through, as ``linear``'s blocks do."""
+    if q.device.type != "cuda" or q.dtype not in (torch.bfloat16, torch.float16):
+        return False
+    return not (torch.is_grad_enabled()
+                and (q.requires_grad or k.requires_grad or v.requires_grad))
 
 
 def _flash_block(q, k, v, causal: bool, q_offset: int, kv_chunk: int) -> torch.Tensor:

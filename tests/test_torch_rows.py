@@ -12,7 +12,9 @@ the bits of one call over all 160 rows.  A last-bit change in a norm's
 f32 row mean moves a bf16 output element only now and then, so every row
 is checked, not only the first M.  The kernels carry their own such gates
 (tests/test_torch_kernels.py, tests/test_torch_attn_kernels.py); this file
-holds the plain torch ops.
+holds the plain torch ops, and ``flash_attention``, which runs K8 on the
+card (kernels/prefill_attn.py), at the paper pair's and the serving
+cells' geometry.
 
 The CPU cases run anywhere; the ``cuda`` cases on a GPU machine, where a
 reduction or a GEMM picks its launch shape from the number of rows (on an
@@ -30,6 +32,7 @@ from repro_torch.serving import quantized_lm as qlm
 
 ROWS = (1, 3, 4, 8, 24, 56, 160)
 D, D_FF, D_DRAFT, HEADS, HD = 4096, 11008, 768, 32, 128
+S_CELL, KV_CELL = 4112, 8  # the serving cells' dense prefill cache: slots, kv heads
 
 
 def _x(dev, shape, seed=0):
@@ -37,9 +40,9 @@ def _x(dev, shape, seed=0):
     return torch.from_numpy(a).to(dev).to(torch.bfloat16)
 
 
-# name -> (each row input's shape per row, None: the row's position;
-#          each fixed input's shape (seeded, shared by every call); op over
-#          the row inputs, then the fixed ones)
+# name -> (each row input's shape per row, None: the row's position from
+#          40, an int: from that position; each fixed input's shape (seeded,
+#          shared by every call); op over the row inputs, then the fixed ones)
 OPS = {
     "row_mean_sq_d4096": (((D,),), (), lambda x: L.row_mean_sq(x.float())),
     "row_mean_sq_d768": (((D_DRAFT,),), (), lambda x: L.row_mean_sq(x.float())),
@@ -63,16 +66,29 @@ OPS = {
                                lambda x, p, k, v: L.flash_attention(
                                    x[None], k, v, causal=True, q_offset=int(p[0]))[0]),
 }
+# the serving cells' prefill attention: GQA 32/8 (Qwen3-8B) and 48/8
+# (Nemotron-4-15B) at hd 128 over the 4,112-slot dense cache, rows near 1k
+# and 3k
+for _h in (32, 48):
+    for _first in (1000, 2990):
+        OPS[f"flash_attention_{_h}x{KV_CELL}x128_at{_first}"] = (
+            ((_h, HD), _first), ((1, S_CELL, KV_CELL, HD), (1, S_CELL, KV_CELL, HD)),
+            lambda x, p, k, v: L.flash_attention(x[None], k, v, causal=True,
+                                                 q_offset=int(p[0]))[0])
+# row counts of the CPU runs where ROWS would take minutes: the plain
+# version pads every call to 128 rows and walks all 4,112 slots
+CPU_ROWS = {name: (1, 4, 16) for name in OPS if name.endswith(("at1000", "at2990"))}
 
 
-def _check(dev, name):
+def _check(dev, name, rows=ROWS):
     shapes, fixed_shapes, op = OPS[name]
-    n = ROWS[-1]
-    ins = [40 + torch.arange(n, device=dev) if s is None else _x(dev, (n,) + s, seed=i)
+    n = rows[-1]
+    ins = [(40 if s is None else s) + torch.arange(n, device=dev)
+           if s is None or isinstance(s, int) else _x(dev, (n,) + s, seed=i)
            for i, s in enumerate(shapes)]
     fixed = [_x(dev, s, seed=20 + i) for i, s in enumerate(fixed_shapes)]
     full = op(*ins, *fixed)
-    bad = [m for m in ROWS
+    bad = [m for m in rows
            if not torch.equal(torch.cat([op(*(a[j:j + m] for a in ins), *fixed)
                                          for j in range(0, n, m)]), full)]
     assert not bad, f"{name}: rows differ from the same rows among {n} at M = {bad}"
@@ -80,7 +96,7 @@ def _check(dev, name):
 
 @pytest.mark.parametrize("name", sorted(OPS))
 def test_rows_independent_of_row_count_cpu(name):
-    _check("cpu", name)
+    _check("cpu", name, CPU_ROWS.get(name, ROWS))
 
 
 @pytest.fixture
